@@ -1,0 +1,41 @@
+"""Hand-written Hopper kernels and their plain PyTorch versions.
+
+Every kernel wrapper launches its kernel for CUDA tensors and runs the
+plain version for CPU tensors only.  Each launch adds one to the kernel's
+count in :data:`LAUNCHES`, so a run can show which kernels its path went
+through.
+"""
+from __future__ import annotations
+
+import torch
+
+LAUNCHES: dict[str, int] = {"fused_benefit": 0, "auction_phase_gs": 0,
+                            "auction_warm_fused": 0}
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def as_rows(x, n: int, width: int, dtype, device, what: str):
+    """``x`` as a contiguous [n] (``width`` 0) or [n, width] tensor of
+    ``dtype`` on ``device``, checked before a kernel gets its pointer."""
+    x = torch.as_tensor(x)
+    shape = (n,) if width == 0 else (n, width)
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{what}: expected shape {shape}, got "
+                         f"{tuple(x.shape)}")
+    return x.to(device=device, dtype=dtype).contiguous()
+
+
+def require_device(t, what: str) -> str:
+    """'cuda' or 'cpu' for a kernel wrapper's input; any other device
+    raises (there is no plain fallback for a CUDA tensor)."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return t.device.type

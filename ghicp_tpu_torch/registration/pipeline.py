@@ -1,0 +1,212 @@
+"""End-to-end pair registration: voxel downsample -> curvature keypoints
+(+ sub-voxel refinement) -> BSC features -> Hamming FD -> RANSAC coarse
+pose -> GH-ICP engine -> one-to-one final resolve.
+
+Between stages the padded clouds are compacted into power-of-two buckets.
+This is the dense lane with BSC features and KM (auction) matching; the
+options the port does not carry yet raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ghicp_tpu_torch.core.config import (CorrespondenceType, FeatureType,
+                                         GHICPConfig)
+from ghicp_tpu_torch.core.device import resolve_device
+from ghicp_tpu_torch.core.types import (PointCloud, bucket_size,
+                                        cloud_bounds, compact_device)
+from ghicp_tpu_torch.features.bsc import extract_bsc
+from ghicp_tpu_torch.features.hamming import min_hamming_fd
+from ghicp_tpu_torch.matching.ransac import ransac_coarse_align
+from ghicp_tpu_torch.preprocess.keypoints import (compact_candidates,
+                                                  detect_keypoints,
+                                                  refine_positions)
+from ghicp_tpu_torch.preprocess.pca import pca_features_pair
+from ghicp_tpu_torch.preprocess.voxel import voxel_downsample
+from ghicp_tpu_torch.registration.ghicp import (GHICPResult,
+                                                ghicp_register_chunked)
+
+
+@dataclasses.dataclass
+class RegistrationOutput:
+    transform: np.ndarray          # [4, 4] source -> target
+    result: GHICPResult
+    n_source_down: int
+    n_target_down: int
+    n_source_keypoints: int
+    n_target_keypoints: int
+    timings: Dict[str, float]
+    # refined keypoints (valid rows, input frames); source rows in the
+    # engine's Morton row order, so result.matches indexes them directly
+    keypoints_source: Optional[np.ndarray] = None
+    keypoints_target: Optional[np.ndarray] = None
+
+    @property
+    def success(self) -> bool:
+        return bool(self.result.success)
+
+    @property
+    def final_rmse(self) -> float:
+        return float(self.result.final_rmse)
+
+
+def _keypoint_arrays(mask: np.ndarray, capacity: int, device):
+    """(indices [capacity], mask [capacity], count) of the set mask bits."""
+    idx = np.nonzero(mask)[0]
+    n = len(idx)
+    out = np.zeros(capacity, np.int64)
+    out[:min(n, capacity)] = idx[:capacity]
+    m = np.zeros(capacity, bool)
+    m[:min(n, capacity)] = True
+    return (torch.as_tensor(out, device=device),
+            torch.as_tensor(m, device=device), n)
+
+
+def _spread3(v: torch.Tensor) -> torch.Tensor:
+    """Spread the low 10 bits of ``v`` so consecutive bits are 3 apart."""
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def _morton_order_rows(xyz: torch.Tensor, mask: torch.Tensor):
+    """Spatial (Morton) order of keypoint rows, masked rows last: rows that
+    contest the same targets land in the same auction tile."""
+    mn = torch.where(mask[:, None], xyz, 3e38).amin(dim=0)
+    mx = torch.where(mask[:, None], xyz, -3e38).amax(dim=0)
+    q = torch.clamp((mx - mn).amax(), min=1e-6) / 1023.0
+    ig = torch.clamp((xyz - mn[None, :]) / q, 0.0, 1023.0).to(torch.int64)
+    code = (_spread3(ig[:, 0]) | (_spread3(ig[:, 1]) << 1)
+            | (_spread3(ig[:, 2]) << 2))
+    code = torch.where(mask, code, 2**31 - 1)
+    return torch.sort(code, stable=True).indices
+
+
+def _check_supported(config: GHICPConfig) -> None:
+    if (config.feature != FeatureType.BSC
+            or config.correspondence != CorrespondenceType.KM):
+        raise NotImplementedError("the port runs the BSC + KM lane only")
+    if config.streaming_cost == "on":
+        raise NotImplementedError("the streaming lane is not ported yet")
+    if config.adaptive_keypoints:
+        raise NotImplementedError("adaptive_keypoints is not ported yet")
+    if config.identity_hypotheses > 1:
+        raise NotImplementedError("identity_hypotheses > 1 is not ported yet")
+    if config.refine_keypoints and config.refine_method != "centroid":
+        raise NotImplementedError("only refine_method='centroid' is ported")
+    if config.bsc_offsets > 1:
+        raise NotImplementedError("bsc_offsets > 1 is not ported yet")
+
+
+@contextlib.contextmanager
+def _stage(name: str, timings: Dict[str, float], dev: torch.device):
+    """Time one pipeline stage (device work included) under a profiler
+    label ``pipeline.<name>``."""
+    t0 = time.perf_counter()
+    with torch.profiler.record_function(f"pipeline.{name}"):
+        yield
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    timings[name] = time.perf_counter() - t0
+
+
+def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
+                  config: GHICPConfig,
+                  keypoint_capacity: Optional[int] = None,
+                  initial_transform: Optional[np.ndarray] = None,
+                  iteration_callback=None, device=None) -> RegistrationOutput:
+    """Register ``source`` onto ``target`` (raw [n, 3] arrays) on
+    ``device`` (the card by default; ``"cpu"`` runs the plain versions)."""
+    dev = resolve_device(device)
+    _check_supported(config)
+    timings: Dict[str, float] = {}
+    with _stage("downsample", timings, dev):
+        cs = PointCloud.from_points(source_pts, device=dev)
+        ct = PointCloud.from_points(target_pts, device=dev)
+        vs = voxel_downsample(cs, config.voxel_size)
+        vt = voxel_downsample(ct, config.voxel_size)
+        n_vs, n_vt = (int(x) for x in torch.stack([vs.mask.sum(),
+                                                   vt.mask.sum()]).cpu())
+        # one shared bucket for both clouds
+        cap_d = max(bucket_size(n_vs), bucket_size(n_vt))
+        ds = compact_device(vs, capacity=cap_d)
+        dt = compact_device(vt, capacity=cap_d)
+        bbx = float(cloud_bounds(ds).magnitude)
+
+    with _stage("keypoints", timings, dev):
+        fs_pca, ft_pca = pca_features_pair(
+            ds, dt, radius=config.neighborhood_radius,
+            cell_cap=config.pca_cell_cap, max_cells=config.pca_max_cells)
+        rs = detect_keypoints(ds, config, fs_pca)
+        rt = detect_keypoints(dt, config, ft_pca)
+        mask_s_np, mask_t_np = rs.mask.cpu().numpy(), rt.mask.cpu().numpy()
+        nks, nkt = int(mask_s_np.sum()), int(mask_t_np.sum())
+        cap = keypoint_capacity or config.keypoint_capacity or bucket_size(
+            max(nks, nkt, 1))
+        if (config.streaming_cost == "auto"
+                and cap > config.streaming_threshold):
+            raise NotImplementedError(
+                f"keypoint capacity {cap} selects the streaming lane, which "
+                "is not ported yet")
+        kp_s_idx, kp_s_mask, _ = _keypoint_arrays(mask_s_np, cap, dev)
+        kp_t_idx, kp_t_mask, _ = _keypoint_arrays(mask_t_np, cap, dev)
+        so = _morton_order_rows(ds.xyz[kp_s_idx], kp_s_mask)
+        kp_s_idx, kp_s_mask = kp_s_idx[so], kp_s_mask[so]
+        kp_s = ds.xyz[kp_s_idx]
+        kp_t = dt.xyz[kp_t_idx]
+        if config.refine_keypoints:
+            rr = config.refine_radius or 3.0 * config.voxel_size
+            cc_s, curv_s = compact_candidates(ds, fs_pca, rs.candidates)
+            cc_t, curv_t = compact_candidates(dt, ft_pca, rt.candidates)
+            kp_s = refine_positions(kp_s, kp_s_mask, cc_s, curv_s, radius=rr)
+            kp_t = refine_positions(kp_t, kp_t_mask, cc_t, curv_t, radius=rr)
+
+    with _stage("features", timings, dev):
+        fs = extract_bsc(ds, kp_s, kp_s_mask, config,
+                         num_variants=config.bsc_num_variants)
+        ft = extract_bsc(dt, kp_t, kp_t_mask, config, num_variants=1)
+        fd = min_hamming_fd(fs.packed, ft.packed, fs.n_bits)
+
+    T0 = None if initial_transform is None else torch.as_tensor(
+        np.asarray(initial_transform, np.float32), device=dev)
+    it_shift = 0.0
+    if T0 is None and config.coarse_init == "ransac":
+        with _stage("coarse_init", timings, dev):
+            tau = config.ransac_tau or 3.0 * config.voxel_size
+            rr_ = ransac_coarse_align(kp_s, kp_s_mask, kp_t, kp_t_mask, fd,
+                                      tau=tau,
+                                      n_hyp=config.ransac_hypotheses,
+                                      n_cand=config.ransac_candidates,
+                                      frames_s=fs.frames, frames_t=ft.frames)
+            if rr_.inliers >= config.ransac_min_inliers:
+                T0 = rr_.transform
+                # skip the feature-dominant schedule phase (W_FD from e^-3)
+                it_shift = 3.0 * config.weight_changing_rate
+
+    with _stage("register", timings, dev):
+        result = ghicp_register_chunked(
+            kp_s, kp_s_mask, kp_t, kp_t_mask, fd, bbx, config,
+            init_transform=T0, it_shift=it_shift, device=dev,
+            iteration_callback=iteration_callback)
+    return RegistrationOutput(
+        transform=result.transform.cpu().numpy(), result=result,
+        n_source_down=n_vs, n_target_down=n_vt,
+        n_source_keypoints=nks, n_target_keypoints=nkt, timings=timings,
+        keypoints_source=kp_s.cpu().numpy()[:min(nks, cap)],
+        keypoints_target=kp_t.cpu().numpy()[:min(nkt, cap)])
+
+
+def transform_error(T_est: np.ndarray, T_gt: np.ndarray):
+    """(rotation error in degrees, translation error in meters)."""
+    dR = T_est[:3, :3] @ T_gt[:3, :3].T
+    c = np.clip((np.trace(dR) - 1.0) / 2.0, -1.0, 1.0)
+    return (float(np.degrees(np.arccos(c))),
+            float(np.linalg.norm(T_est[:3, 3] - T_gt[:3, 3])))
