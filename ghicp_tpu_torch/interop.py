@@ -16,6 +16,9 @@ import torch
 
 from ghicp_tpu_torch.core.config import (CorrespondenceType, FeatureType,
                                          GHICPConfig)
+from ghicp_tpu_torch.features.bsc import pack_bits
+from ghicp_tpu_torch.matching.stream_auction import StreamCarry, carry_init
+from ghicp_tpu_torch.ops.stream_kernel import StreamFeatures, to_words
 from ghicp_tpu_torch.registration.ghicp import IterationMetrics, _State
 
 _ENUMS = {"feature": FeatureType, "correspondence": CorrespondenceType}
@@ -44,27 +47,46 @@ def config_to_dict(config: GHICPConfig) -> dict:
     return out
 
 
+def stream_features_from_numpy(fs, ft, na, nb, n_bits: int = 441,
+                               device="cpu") -> StreamFeatures:
+    """The port's packed factors from the JAX ``StreamFeatures`` fields as
+    numpy arrays: unpacked {0, 1} bits ``fs`` [V, S, F] and ``ft`` [C, F]
+    (F >= n_bits, zero-padded), popcounts ``na`` [V, S] and ``nb`` [C]."""
+    n_words = -(-n_bits // 32)
+    bits = lambda x: torch.tensor(
+        np.asarray(x)[..., :32 * n_words].astype(np.int64), device=device)
+    return StreamFeatures(
+        words_s=to_words(pack_bits(bits(fs))).contiguous(),
+        words_t=to_words(pack_bits(bits(ft))).contiguous(),
+        na=torch.tensor(np.asarray(na, np.float32), device=device),
+        nb=torch.tensor(np.asarray(nb, np.float32), device=device))
+
+
 def state_from_numpy(arrays: Mapping, device, max_iterations: int = 100
                      ) -> _State:
     """The port's engine state from the JAX ``_State`` fields as numpy
-    arrays (``metrics`` optional: a mapping of its seven arrays)."""
+    arrays (``metrics`` optional: a mapping of its arrays, the port's own
+    ``open_rows``, ``compact_sweeps`` and ``fast`` zero where absent;
+    ``scarry`` optional: a mapping of the eight ``StreamCarry`` fields)."""
     dev = torch.device(device)
     f32 = lambda k: torch.tensor(np.asarray(arrays[k], np.float32),
                                  device=dev)
     i64 = lambda k: torch.tensor(np.asarray(arrays[k], np.int64), device=dev)
-    met = arrays.get("metrics")
-    if met is None:
-        zf = torch.zeros((max_iterations,), dtype=torch.float32, device=dev)
-        zi = torch.zeros((max_iterations,), dtype=torch.int64, device=dev)
-        metrics = IterationMetrics(zf.clone(), zf.clone(), zf.clone(),
-                                   zi.clone(), zf.clone(), zf.clone(),
-                                   zi.clone())
+    met = dict(arrays.get("metrics") or {})
+    n_it = len(np.asarray(met["cor"])) if "cor" in met else max_iterations
+    ints = ("cor", "rounds", "open_rows", "compact_sweeps", "fast")
+    metrics = IterationMetrics(**{
+        k: torch.tensor(np.asarray(met.get(k, np.zeros(n_it)),
+                                   np.int64 if k in ints else np.float32),
+                        device=dev)
+        for k in IterationMetrics._fields})
+    sc = arrays.get("scarry")
+    if sc is None:
+        scarry = carry_init(np.asarray(arrays["acol"]).shape[0], dev)
     else:
-        conv = {"cor": np.int64, "rounds": np.int64}
-        metrics = IterationMetrics(**{
-            k: torch.tensor(np.asarray(met[k], conv.get(k, np.float32)),
-                            device=dev)
-            for k in IterationMetrics._fields})
+        scarry = StreamCarry(ok=bool(np.asarray(sc["ok"])), **{
+            k: torch.tensor(np.asarray(sc[k], np.float32), device=dev)
+            for k in StreamCarry._fields if k != "ok"})
     return _State(
         kps=f32("kps"), rt=f32("rt"), it=int(np.asarray(arrays["it"])),
         converged=bool(np.asarray(arrays["converged"])), rms=f32("rms"),
@@ -73,4 +95,4 @@ def state_from_numpy(arrays: Mapping, device, max_iterations: int = 100
         rmse_after=f32("rmse_after"), prices=f32("prices"),
         acol=i64("acol"), price_unc=f32("price_unc"),
         pen_prev=f32("pen_prev"),
-        it_shift=float(np.asarray(arrays["it_shift"])))
+        it_shift=float(np.asarray(arrays["it_shift"])), scarry=scarry)

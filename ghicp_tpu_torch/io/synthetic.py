@@ -248,6 +248,27 @@ def bench_pair(n_points: int = 800_000, extent: float = 25.0, seed: int = 7):
     return src, tgt, T_gt
 
 
+def stream_pair(n_points: int = 2_000_000, extent: float = 40.0,
+                seed: int = 29):
+    """The dense-scan pair of the streaming lane (the JAX package's
+    ``bench_configs.py`` config 6): one 40 m scene, independent 6 mm noise
+    on each cloud, a 12-degree yaw and a (1.5, -1.0, 0.2) m shift.  Returns
+    (source, target, T_gt)."""
+    rng = np.random.default_rng(seed)
+    pts = structured_scene(rng, n_points, extent=extent)
+    theta = np.deg2rad(12.0)
+    R = np.array([[np.cos(theta), -np.sin(theta), 0],
+                  [np.sin(theta), np.cos(theta), 0], [0, 0, 1]], np.float32)
+    t = np.float32([1.5, -1.0, 0.2])
+    T_gt = np.eye(4, dtype=np.float32)
+    T_gt[:3, :3] = R
+    T_gt[:3, 3] = t
+    src = ((pts - t) @ R
+           + rng.normal(0, 0.006, pts.shape)).astype(np.float32)
+    tgt = (pts + rng.normal(0, 0.006, pts.shape)).astype(np.float32)
+    return src, tgt, T_gt
+
+
 def registration_problem(S: int, T: int, seed: int = 0,
                          rot_deg: float = 5.0, n_bits: int = 441,
                          flip: float = 0.06):

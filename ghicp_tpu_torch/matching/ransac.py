@@ -1,7 +1,8 @@
 """Feature-guided RANSAC coarse alignment, all hypotheses at once.
 
 1. candidates: the ``n_cand`` feature-nearest target keypoints per source
-   keypoint (from the dense FD matrix);
+   keypoint (from the dense FD matrix, or given precomputed, as the
+   streaming lane does);
 2. hypotheses: random triples of candidate pairs (a ``torch.Generator``
    draw) that pass a rigidity and non-degeneracy prefilter, plus, when LCS
    frames are given, one pose per (source row, candidate, sign class) from
@@ -85,18 +86,24 @@ def _nearest(p, dst, cok):
 def ransac_coarse_align(kp_s, mask_s, kp_t, mask_t, fd, tau: float,
                         n_hyp: int = 1 << 17, n_cand: int = 2, seed: int = 0,
                         frames_s: Optional[torch.Tensor] = None,
-                        frames_t: Optional[torch.Tensor] = None
+                        frames_t: Optional[torch.Tensor] = None,
+                        cand: Optional[torch.Tensor] = None,
+                        cand_ok: Optional[torch.Tensor] = None
                         ) -> RansacResult:
     """Coarse rigid transform from feature correspondences.  ``fd`` [S, T]
-    is a feature distance (smaller = more similar); ``tau`` the inlier
-    radius in meters."""
+    is a feature distance (smaller = more similar); with ``fd`` None the
+    candidates come precomputed as ``cand`` [S, n] target ids and
+    ``cand_ok`` [S, n].  ``tau`` is the inlier radius in meters."""
     S = kp_s.shape[0]
     dev = kp_s.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    fdm = torch.where(mask_s[:, None] & mask_t[None, :], fd, BIG)
-    neg, cand = torch.topk(-fdm, n_cand, dim=1)              # [S, C]
-    cand_ok = (-neg < BIG) & mask_s[:, None]
+    if cand is None:
+        fdm = torch.where(mask_s[:, None] & mask_t[None, :], fd, BIG)
+        neg, cand = torch.topk(-fdm, n_cand, dim=1)          # [S, C]
+        cand_ok = (-neg < BIG) & mask_s[:, None]
+    else:
+        n_cand = cand.shape[1]
     dst_all = kp_t[cand]                                     # [S, C, 3]
     row_ok = cand_ok.any(dim=1)
 

@@ -6,10 +6,11 @@ refinement.
 * ``non_max_suppression`` is the parallel fixed point of greedy
   suppression by curvature: each round every alive candidate that beats
   (curvature desc, index asc) every alive candidate within the radius is
-  selected and suppresses its neighbors.  Up to 8192 candidates the exact
-  O(N^2) fixed point runs; above, the K-capped neighbor-list (gather) path.
-  (The JAX package routes (8192, 131072] to its ``nms_pallas`` kernel;
-  that band takes the gather path here until the kernel is ported.)
+  selected and suppresses its neighbors.  The dispatch is the JAX
+  package's: up to 8192 slots the exact O(N^2) fixed point; in (8192,
+  131072] (256-aligned) the exact-radius fixed point of kernel K4
+  (:func:`ghicp_tpu_torch.ops.nms_kernel.nms_exact`); above, the K-capped
+  neighbor-list (gather) path.
 """
 from __future__ import annotations
 
@@ -20,10 +21,13 @@ import torch
 from ghicp_tpu_torch.core.config import GHICPConfig
 from ghicp_tpu_torch.core.types import (PointCloud, bucket_size,
                                         stable_live_first)
+from ghicp_tpu_torch.ops.nms_kernel import TS as NMS_TILE
+from ghicp_tpu_torch.ops.nms_kernel import nms_exact
 from ghicp_tpu_torch.preprocess.neighbors import radius_neighbors
 from ghicp_tpu_torch.preprocess.pca import PCAFeatures, pca_features
 
 NMS_BRUTE_MAX_N = 8192
+NMS_KERNEL_MAX_N = 131072
 _NEG = -3.0e38
 _BIG = 2**30
 
@@ -32,6 +36,17 @@ class KeypointResult(NamedTuple):
     mask: torch.Tensor        # [N] selected keypoints
     candidates: torch.Tensor  # [N] survived stability pruning
     rounds: int
+    bucket: int = 0           # slots of the compacted candidate bucket
+    path: str = ""            # NMS path it took (:func:`nms_path`)
+
+
+def nms_path(n: int) -> str:
+    """The NMS path for ``n`` slots: "brute", "kernel" (K4) or "gather"."""
+    if n <= NMS_BRUTE_MAX_N:
+        return "brute"
+    if n % NMS_TILE == 0 and n <= NMS_KERNEL_MAX_N:
+        return "kernel"
+    return "gather"
 
 
 def prune_unstable(feats: PCAFeatures, ratio_max: float,
@@ -72,9 +87,13 @@ def non_max_suppression(cloud: PointCloud, curvature, candidates,
                         chunk: int = 4096, max_rounds: int = 128):
     """Parallel greedy-equivalent NMS.  Returns (selected mask, rounds)."""
     n = cloud.capacity
-    if n <= NMS_BRUTE_MAX_N:
+    path = nms_path(n)
+    if path == "brute":
         return nms_bruteforce(cloud.xyz, curvature, candidates & cloud.mask,
                               radius, max_rounds)
+    if path == "kernel":
+        return nms_exact(cloud.xyz, curvature, candidates & cloud.mask,
+                         radius, max_rounds)
     cand_cloud = PointCloud(xyz=cloud.xyz, mask=candidates)
     nb = radius_neighbors(cand_cloud, cand_cloud, radius=radius, k=k,
                           cell_cap=cell_cap, chunk=chunk, include_self=False)
@@ -142,7 +161,8 @@ def detect_keypoints(cloud: PointCloud, config: GHICPConfig,
         k=config.nms_k, cell_cap=config.nms_cell_cap, chunk=min(1024, cap))
     mask = torch.zeros((n,), dtype=torch.bool, device=cloud.xyz.device)
     mask[sel] = sel_c & cmask
-    return KeypointResult(mask=mask, candidates=candidates, rounds=rounds)
+    return KeypointResult(mask=mask, candidates=candidates, rounds=rounds,
+                          bucket=cap, path=nms_path(cap))
 
 
 def compact_candidates(cloud: PointCloud, feats: PCAFeatures, candidates):

@@ -1,9 +1,10 @@
-"""The GH-ICP registration engine, dense KM lane (PyTorch port).
+"""The GH-ICP registration engine, KM lanes (PyTorch port).
 
 One iteration (:func:`make_body`): ED + CD blend -> auction matching ->
 margin-weighted robust Kabsch with Tukey IRLS -> convergence test -> IoU
-penalty-weight step, with the feature distance computed once before the
-loop.  Two solve branches, with the JAX package's gate:
+penalty-weight step.  On the dense lane the feature distance is computed
+once before the loop and two solve branches run, with the JAX package's
+gate:
 
 * the full solve — the fused benefit sweep (kernel K1) builds the bf16
   benefit matrix, the CD statistics and the warm-start hints, then the
@@ -12,9 +13,16 @@ loop.  Two solve branches, with the JAX package's gate:
   assignment warm start exists (it > 1), at S, T >= 1024, one launch of
   the warm fused kernel (K3) does the whole solve.
 
+On the streaming lane (``stream``: packed BSC factors, no FD matrix) every
+iteration is one matrix-free solve
+(:func:`ghicp_tpu_torch.matching.stream_auction.stream_solve`, sweeps of
+kernel K5), with a :class:`StreamCarry` of hints from one iteration to the
+next that lets statistics-free iterations skip sweep 0.
+
 The loop is a host loop with one read of ``converged`` per iteration.
-After it, one full-budget warm re-solve at the final pose gives the
-one-to-one matching the success verdict reads (:func:`final_resolve`).
+After it, the dense lane runs one full-budget warm re-solve at the final
+pose for the one-to-one matching the success verdict reads; the streaming
+lane deduplicates its last matching instead (:func:`final_resolve`).
 """
 from __future__ import annotations
 
@@ -32,9 +40,12 @@ from ghicp_tpu_torch.matching.auction import (SINK, auction_match,
                                               derive_acol)
 from ghicp_tpu_torch.matching.cost import bsc_penalty, euclidean_matrix
 from ghicp_tpu_torch.matching.matchers import MatchResult
+from ghicp_tpu_torch.matching.stream_auction import (StreamCarry, carry_init,
+                                                     stream_solve)
 from ghicp_tpu_torch.ops.auction_rounds import (auction_warm_fused,
                                                 gs_tile_rows)
 from ghicp_tpu_torch.ops.cost_kernel import fused_benefit
+from ghicp_tpu_torch.ops.stream_kernel import StreamFeatures
 from ghicp_tpu_torch.registration.estimator import estimate
 
 
@@ -48,6 +59,12 @@ class IterationMetrics(NamedTuple):
     iou: torch.Tensor         # [I]
     penalty: torch.Tensor     # [I]
     rounds: torch.Tensor      # [I] auction sweeps
+    # streaming lane only (0 on the dense lane): rows the keep test left
+    # open, sweeps over a compacted block of open rows, and 1 where the
+    # carry replaced sweep 0
+    open_rows: torch.Tensor       # [I]
+    compact_sweeps: torch.Tensor  # [I]
+    fast: torch.Tensor            # [I]
 
 
 class GHICPResult(NamedTuple):
@@ -78,6 +95,8 @@ class _State(NamedTuple):
     price_unc: torch.Tensor   # [T] per-column deflation depth
     pen_prev: torch.Tensor    # previous iteration's penalty
     it_shift: float           # schedule offset of W_FD
+    scarry: StreamCarry       # streaming lane's hint carry (ok=False on the
+                              # dense lane)
 
 
 def _f(x, dev) -> torch.Tensor:
@@ -141,7 +160,8 @@ def initial_state(kp_s: torch.Tensor, n_target: int, config: GHICPConfig,
     metrics = IterationMetrics(energy=zf.clone(), rmse=zf.clone(),
                                rmse_after=zf.clone(), cor=zi.clone(),
                                iou=zf.clone(), penalty=zf.clone(),
-                               rounds=zi.clone())
+                               rounds=zi.clone(), open_rows=zi.clone(),
+                               compact_sweeps=zi.clone(), fast=zi.clone())
     return _State(
         kps=kps0, rt=rt0, it=0, converged=False, rms=_f(99999.0, dev),
         fdm=_f(0.0, dev), fdstd=_f(0.0, dev),
@@ -153,15 +173,16 @@ def initial_state(kp_s: torch.Tensor, n_target: int, config: GHICPConfig,
         acol=torch.full((S,), -1, dtype=torch.int64, device=dev),
         price_unc=torch.full((n_target,), 3.0e38, dtype=torch.float32,
                              device=dev),
-        pen_prev=_f(0.0, dev), it_shift=float(it_shift))
+        pen_prev=_f(0.0, dev), it_shift=float(it_shift),
+        scarry=carry_init(S, dev))
 
 
-def _check_lane(config: GHICPConfig, S: int, T: int) -> None:
+def _check_lane(config: GHICPConfig, S: int, T: int, stream: bool) -> None:
     if (config.feature != FeatureType.BSC
             or config.correspondence != CorrespondenceType.KM):
         raise NotImplementedError(
-            "the port's engine runs the BSC + KM dense lane only")
-    if not config.auction_bf16:
+            "the port's engine runs the BSC + KM lanes only")
+    if not stream and not config.auction_bf16:
         raise NotImplementedError(
             "the port's kernels take a bf16 FD / benefit matrix; "
             "auction_bf16=False is not ported yet")
@@ -171,10 +192,12 @@ def _check_lane(config: GHICPConfig, S: int, T: int) -> None:
 
 
 def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
-              config: GHICPConfig):
-    """One GH-ICP iteration as a function ``_State -> _State``."""
+              config: GHICPConfig, stream: Optional[StreamFeatures] = None):
+    """One GH-ICP iteration as a function ``_State -> _State``; with
+    ``stream`` (and ``fd`` None) on the streaming lane."""
     S, T = mask_s.shape[0], kp_t.shape[0]
-    _check_lane(config, S, T)
+    use_stream = stream is not None
+    _check_lane(config, S, T, use_stream)
     dev = kp_t.device
     scale = _f32(config.scale_factor * _f32(bbx_magnitude))
     scale_t = _f(scale, dev)
@@ -186,9 +209,10 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
     mid = 0.5 * (torch.where(mask_t[:, None], kp_t, 3e38).amin(dim=0)
                  + torch.where(mask_t[:, None], kp_t, -3e38).amax(dim=0))
     kp_t_c = torch.where(mask_t[:, None], kp_t - mid[None, :], 0.0)
-    fd_b = fd.to(torch.bfloat16)
+    fd_b = None if use_stream else fd.to(torch.bfloat16)
     ts_gs = gs_tile_rows(T)
-    use_warm_kernel = (config.warm_fused_kernel and config.auction_phases == 1
+    use_warm_kernel = (not use_stream and config.warm_fused_kernel
+                       and config.auction_phases == 1
                        and S % ts_gs == 0 and S >= 1024 and T >= 1024
                        and ts_gs * T <= 256 * 8192)
 
@@ -276,11 +300,34 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
         return (match, energy_k, r_k, p_k, acol_k, -bsel, penalty, ed_max_k,
                 punc_k)
 
+    def stream_step(st, it_eff, wed, wfd, budget, kps_c):
+        """One matrix-free solve; the fast path (carried hints instead of
+        sweep 0) once the BSC penalty schedule is statistics-free, with a
+        full sweep 0 every ``stream_refresh_every`` iterations."""
+        def penalty_fn(mean, std):
+            return bsc_penalty(mean, std, it_eff, st.rms, st.fdm, st.fdstd,
+                               st.para1, st.para2, scale_t, _f(wed, dev),
+                               _f(wfd, dev), config.penalty_initial)
+
+        sf = it_eff > 1.0
+        if config.stream_refresh_every > 0:
+            sf = sf and st.it % config.stream_refresh_every != 0
+        return stream_solve(
+            kps_c, kp_t_c, stream, mask_s, mask_t, wed, wfd, scale,
+            penalty_fn, eps_final=config.km_eps,
+            rel_eps=config.auction_rel_eps, max_sweeps=budget, p0=st.prices,
+            price_uncertainty=st.price_unc, acol0=st.acol,
+            pen_prev=st.pen_prev,
+            carry=st.scarry if config.stream_fast_path else None,
+            stats_free=sf, open_cap=config.stream_open_cap,
+            compact_extra_sweeps=config.stream_compact_budget)
+
     def prepare(st):
         it_eff = _f32(st.it + st.it_shift)
         wed, wfd = blend_weights(it_eff, config)
         budget = config.auction_max_rounds
-        if (config.auction_warm_rounds > 0
+        # warm budgets serve the dense lanes only
+        if (config.auction_warm_rounds > 0 and not use_stream
                 and S >= config.auction_warm_min_rows
                 and st.it > config.auction_warm_after):
             budget = config.auction_warm_rounds
@@ -298,6 +345,11 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
 
     def body(st: _State) -> _State:
         it_eff, wed, wfd, budget, kps_c, owner0, real0 = prepare(st)
+        if use_stream:
+            sres = stream_step(st, it_eff, wed, wfd, budget, kps_c)
+            return _tail(st, sres.match, sres.energy, sres.rounds,
+                         sres.prices, sres.acol, sres.cd_sel, sres.penalty,
+                         sres.ed_max, sres.punc, sres)
         if use_warm_kernel and it_eff > 1.0 and st.it > 1:
             outs = warm_solve(st, it_eff, wed, wfd, budget, kps_c, owner0,
                               real0)
@@ -311,11 +363,12 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
                      penalty, ed_max, punc_new)
 
     def _tail(st, match, energy, rounds, prices, acol_new, cd_sel, penalty,
-              ed_max, punc_new):
+              ed_max, punc_new, sres=None):
         w = match.w
         tgt_idx = match.tgt_idx
         cor = w.sum()
-        fsel = fd_b[rows, tgt_idx].to(torch.float32)
+        fsel = (sres.fd_sel if sres is not None
+                else fd_b[rows, tgt_idx].to(torch.float32))
         rmse, fdm, fdstd = matched_stats(st.kps, kp_t, fsel, tgt_idx, w)
         iou = cor / torch.clamp(ns + nt - cor, min=1.0)
         tgt_pts = kp_t[tgt_idx]
@@ -356,6 +409,10 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
         m.iou[i] = iou
         m.penalty[i] = penalty
         m.rounds[i] = torch.as_tensor(rounds).to(m.rounds.device)
+        if sres is not None:
+            m.open_rows[i] = sres.open_rows
+            m.compact_sweeps[i] = sres.compact_sweeps
+            m.fast[i] = int(sres.fast)
         flags = torch.stack([cor < config.min_cor, small]).cpu()
         converged = st.converged or bool(flags[0]) or bool(flags[1])
         matches = torch.where(w > 0, tgt_idx, -1)
@@ -366,40 +423,59 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
         i_eff = i + st.it_shift
         dwfd = math.exp(-i_eff / r) - math.exp(-(i_eff + 1.0) / r)
         drift_next = d_ed + dwfd * (ed_max + d_ed)
+        scarry = st.scarry
+        if sres is not None and config.stream_fast_path:
+            # hints for the next fast solve: fresh or propagated row bounds,
+            # the ED max inflated by this step's motion, and the two
+            # wfd-decay rise bounds (global dwfd * fd_max and per-row ratio)
+            wfd_next = math.exp(-(i_eff + 1.0) / r)
+            scarry = StreamCarry(
+                ok=True, v1_ub=sres.v1_next, b_max=sres.b_max_next,
+                ed_max=ed_max + d_ed, fd_max=sres.fd_max, v1_drift=d_ed,
+                fd_term=dwfd * sres.fd_max,
+                decay_ratio=_f(dwfd / max(wfd_next, 1e-30), dev))
         return _State(
             kps=kps_new, rt=tf.compose(rt_step, st.rt), it=i + 1,
             converged=converged, rms=rmse, fdm=fdm, fdstd=fdstd,
             para1=st.para1 + delta, para2=st.para2 + delta, metrics=m,
             matches=matches, rmse_after=rmse_after, prices=prices,
             acol=acol_new, price_unc=punc_new + drift_next, pen_prev=penalty,
-            it_shift=st.it_shift)
+            it_shift=st.it_shift, scarry=scarry)
 
     body.warm_kernel_args = warm_kernel_args
     return body
 
 
 def final_resolve(state: _State, kp_t, mask_s, mask_t, fd,
-                  bbx_magnitude: float, config: GHICPConfig):
-    """One full-budget KM re-solve at the final pose, at the absolute
-    ``km_eps``, deduplicated to one row per column.  Returns (matches [S],
-    n_matches, rmse)."""
+                  bbx_magnitude: float, config: GHICPConfig,
+                  stream: Optional[StreamFeatures] = None):
+    """The one-to-one final matching.  Dense lane: one full-budget KM
+    re-solve at the final pose, at the absolute ``km_eps``; streaming lane:
+    no extra solve, the last iteration's matching.  Either is then
+    deduplicated to one row per column (the highest row id keeps it).
+    Returns (matches [S], n_matches, rmse)."""
     dev = kp_t.device
-    scale = _f32(config.scale_factor * _f32(bbx_magnitude))
     S, T = state.kps.shape[0], kp_t.shape[0]
-    it_eff = _f32(max(state.it - 1, 0) + state.it_shift)
-    wed, wfd = blend_weights(it_eff, config)
-    ed = euclidean_matrix(state.kps, kp_t, _f(scale, dev))
-    cd = torch.where(mask_s[:, None] & mask_t[None, :],
-                     _f(wed, dev) * ed + _f(wfd, dev) * fd.to(torch.float32),
-                     torch.inf)
-    del ed
-    ares = auction_match(cd, state.pen_prev, mask_s, mask_t,
-                         eps_final=config.km_eps,
-                         max_rounds=config.final_resolve_rounds, rel_eps=0.0,
-                         p0=state.prices, price_uncertainty=state.price_unc,
-                         n_phases=1,
-                         acol0=state.acol, keep_slack_extra=0.0)
-    tgt_idx, w = ares.match.tgt_idx, ares.match.w
+    if stream is not None:
+        real = (state.acol >= 0) & (state.acol < T)
+        tgt_idx = torch.where(real, state.acol, 0)
+        w = (state.matches >= 0).to(torch.float32)
+    else:
+        scale = _f32(config.scale_factor * _f32(bbx_magnitude))
+        it_eff = _f32(max(state.it - 1, 0) + state.it_shift)
+        wed, wfd = blend_weights(it_eff, config)
+        ed = euclidean_matrix(state.kps, kp_t, _f(scale, dev))
+        cd = torch.where(mask_s[:, None] & mask_t[None, :],
+                         _f(wed, dev) * ed
+                         + _f(wfd, dev) * fd.to(torch.float32), torch.inf)
+        del ed
+        ares = auction_match(cd, state.pen_prev, mask_s, mask_t,
+                             eps_final=config.km_eps,
+                             max_rounds=config.final_resolve_rounds,
+                             rel_eps=0.0, p0=state.prices,
+                             price_uncertainty=state.price_unc, n_phases=1,
+                             acol0=state.acol, keep_slack_extra=0.0)
+        tgt_idx, w = ares.match.tgt_idx, ares.match.w
     rows = torch.arange(S, device=dev)
     own = torch.full((T + 1,), -1, dtype=torch.int64, device=dev)
     own.scatter_reduce_(0, torch.where(w > 0, tgt_idx, T), rows, "amax")
@@ -414,21 +490,27 @@ def final_resolve(state: _State, kp_t, mask_s, mask_t, fd,
 def ghicp_register_chunked(kp_s, mask_s, kp_t, mask_t, fd,
                            bbx_magnitude: float, config: GHICPConfig,
                            init_transform=None, it_shift: float = 0.0,
-                           device=None, iteration_callback=None
+                           device=None, iteration_callback=None,
+                           stream: Optional[StreamFeatures] = None
                            ) -> GHICPResult:
     """Run the GH-ICP loop to convergence (or ``max_iterations``), then
-    the one-to-one final resolve.  Inputs are moved to ``device`` (the
-    card by default).  ``iteration_callback(it, kps, matches)`` gets host
-    numpy copies after every iteration."""
+    the one-to-one final matching.  Inputs are moved to ``device`` (the
+    card by default).  ``stream`` (packed BSC factors, ``fd`` None)
+    selects the streaming lane.  ``iteration_callback(it, kps, matches)``
+    gets host numpy copies after every iteration."""
     dev = resolve_device(device)
     to = lambda x: torch.as_tensor(x).to(dev)
     kp_s, kp_t = to(kp_s).to(torch.float32), to(kp_t).to(torch.float32)
     mask_s, mask_t = to(mask_s).to(torch.bool), to(mask_t).to(torch.bool)
-    fd = to(fd).to(torch.float32)
+    if stream is not None:
+        fd = None
+        stream = StreamFeatures(*(to(x) for x in stream))
+    else:
+        fd = to(fd).to(torch.float32)
     T0 = None if init_transform is None else to(init_transform)
     bbx = float(bbx_magnitude)
     state = initial_state(kp_s, kp_t.shape[0], config, T0, it_shift)
-    body = make_body(kp_t, mask_s, mask_t, fd, bbx, config)
+    body = make_body(kp_t, mask_s, mask_t, fd, bbx, config, stream)
     while not state.converged and state.it < config.max_iterations:
         state = body(state)
         if iteration_callback is not None:
@@ -438,7 +520,7 @@ def ghicp_register_chunked(kp_s, mask_s, kp_t, mask_t, fd,
     final_rmse = float(state.rmse_after)
     if config.final_resolve_rounds > 0:
         matches, _, rmse = final_resolve(state, kp_t, mask_s, mask_t, fd, bbx,
-                                         config)
+                                         config, stream)
         final_rmse = float(rmse)
     return GHICPResult(transform=state.rt, iterations=state.it,
                        converged=state.converged,

@@ -1,10 +1,13 @@
 """End-to-end pair registration: voxel downsample -> curvature keypoints
 (+ sub-voxel refinement) -> BSC features -> Hamming FD -> RANSAC coarse
-pose -> GH-ICP engine -> one-to-one final resolve.
+pose -> GH-ICP engine -> one-to-one final matching.
 
 Between stages the padded clouds are compacted into power-of-two buckets.
-This is the dense lane with BSC features and KM (auction) matching; the
-options the port does not carry yet raise ``NotImplementedError``.
+BSC features with KM (auction) matching, on two lanes: the dense lane
+builds the [cap, cap] FD matrix; the streaming lane (``streaming_cost``
+"on", or "auto" above ``streaming_threshold`` keypoints) keeps the packed
+bits as factors and never builds an [S, T] tensor.  The options the port
+does not carry yet raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,6 +27,9 @@ from ghicp_tpu_torch.core.types import (PointCloud, bucket_size,
 from ghicp_tpu_torch.features.bsc import extract_bsc
 from ghicp_tpu_torch.features.hamming import min_hamming_fd
 from ghicp_tpu_torch.matching.ransac import ransac_coarse_align
+from ghicp_tpu_torch.ops.stream_kernel import (make_stream_features,
+                                               stream_feature_candidates,
+                                               subset_rows)
 from ghicp_tpu_torch.preprocess.keypoints import (compact_candidates,
                                                   detect_keypoints,
                                                   refine_positions)
@@ -46,6 +52,9 @@ class RegistrationOutput:
     # engine's Morton row order, so result.matches indexes them directly
     keypoints_source: Optional[np.ndarray] = None
     keypoints_target: Optional[np.ndarray] = None
+    # per cloud: candidate bucket, NMS path and rounds of the keypoint stage
+    nms: Optional[tuple] = None
+    streaming: bool = False        # the engine ran the streaming lane
 
     @property
     def success(self) -> bool:
@@ -93,9 +102,7 @@ def _morton_order_rows(xyz: torch.Tensor, mask: torch.Tensor):
 def _check_supported(config: GHICPConfig) -> None:
     if (config.feature != FeatureType.BSC
             or config.correspondence != CorrespondenceType.KM):
-        raise NotImplementedError("the port runs the BSC + KM lane only")
-    if config.streaming_cost == "on":
-        raise NotImplementedError("the streaming lane is not ported yet")
+        raise NotImplementedError("the port runs the BSC + KM lanes only")
     if config.adaptive_keypoints:
         raise NotImplementedError("adaptive_keypoints is not ported yet")
     if config.identity_hypotheses > 1:
@@ -151,11 +158,9 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
         nks, nkt = int(mask_s_np.sum()), int(mask_t_np.sum())
         cap = keypoint_capacity or config.keypoint_capacity or bucket_size(
             max(nks, nkt, 1))
-        if (config.streaming_cost == "auto"
-                and cap > config.streaming_threshold):
-            raise NotImplementedError(
-                f"keypoint capacity {cap} selects the streaming lane, which "
-                "is not ported yet")
+        use_stream = (config.streaming_cost == "on"
+                      or (config.streaming_cost == "auto"
+                          and cap > config.streaming_threshold))
         kp_s_idx, kp_s_mask, _ = _keypoint_arrays(mask_s_np, cap, dev)
         kp_t_idx, kp_t_mask, _ = _keypoint_arrays(mask_t_np, cap, dev)
         so = _morton_order_rows(ds.xyz[kp_s_idx], kp_s_mask)
@@ -173,7 +178,12 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
         fs = extract_bsc(ds, kp_s, kp_s_mask, config,
                          num_variants=config.bsc_num_variants)
         ft = extract_bsc(dt, kp_t, kp_t_mask, config, num_variants=1)
-        fd = min_hamming_fd(fs.packed, ft.packed, fs.n_bits)
+        if use_stream:
+            fd = None
+            stream = make_stream_features(fs.packed, ft.packed)
+        else:
+            fd = min_hamming_fd(fs.packed, ft.packed, fs.n_bits)
+            stream = None
 
     T0 = None if initial_transform is None else torch.as_tensor(
         np.asarray(initial_transform, np.float32), device=dev)
@@ -181,11 +191,26 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
     if T0 is None and config.coarse_init == "ransac":
         with _stage("coarse_init", timings, dev):
             tau = config.ransac_tau or 3.0 * config.voxel_size
-            rr_ = ransac_coarse_align(kp_s, kp_s_mask, kp_t, kp_t_mask, fd,
-                                      tau=tau,
-                                      n_hyp=config.ransac_hypotheses,
-                                      n_cand=config.ransac_candidates,
-                                      frames_s=fs.frames, frames_t=ft.frames)
+            if use_stream:
+                # candidates from one factor scan, over source rows strided
+                # down to ransac_max_rows (the Morton order makes the
+                # stride spatially uniform)
+                rsel = torch.arange(0, cap, -(-cap // config.ransac_max_rows),
+                                    device=dev)
+                cand, cand_ok = stream_feature_candidates(
+                    subset_rows(stream, rsel), kp_s_mask[rsel], kp_t_mask)
+                rr_ = ransac_coarse_align(
+                    kp_s[rsel], kp_s_mask[rsel], kp_t, kp_t_mask, None,
+                    tau=tau, n_hyp=config.ransac_hypotheses,
+                    frames_s=fs.frames[rsel], frames_t=ft.frames, cand=cand,
+                    cand_ok=cand_ok)
+            else:
+                rr_ = ransac_coarse_align(kp_s, kp_s_mask, kp_t, kp_t_mask,
+                                          fd, tau=tau,
+                                          n_hyp=config.ransac_hypotheses,
+                                          n_cand=config.ransac_candidates,
+                                          frames_s=fs.frames,
+                                          frames_t=ft.frames)
             if rr_.inliers >= config.ransac_min_inliers:
                 T0 = rr_.transform
                 # skip the feature-dominant schedule phase (W_FD from e^-3)
@@ -195,13 +220,16 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
         result = ghicp_register_chunked(
             kp_s, kp_s_mask, kp_t, kp_t_mask, fd, bbx, config,
             init_transform=T0, it_shift=it_shift, device=dev,
-            iteration_callback=iteration_callback)
+            iteration_callback=iteration_callback, stream=stream)
     return RegistrationOutput(
         transform=result.transform.cpu().numpy(), result=result,
         n_source_down=n_vs, n_target_down=n_vt,
         n_source_keypoints=nks, n_target_keypoints=nkt, timings=timings,
         keypoints_source=kp_s.cpu().numpy()[:min(nks, cap)],
-        keypoints_target=kp_t.cpu().numpy()[:min(nkt, cap)])
+        keypoints_target=kp_t.cpu().numpy()[:min(nkt, cap)],
+        nms=tuple(dict(bucket=r.bucket, path=r.path, rounds=int(r.rounds))
+                  for r in (rs, rt)),
+        streaming=use_stream)
 
 
 def transform_error(T_est: np.ndarray, T_gt: np.ndarray):

@@ -7,6 +7,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -33,13 +34,24 @@ def test_compare_phase_at_small_size(monkeypatch):
     monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(chip_smoke, "REPS", 1)
-    rows = chip_smoke.compare_kernels(torch, seed=7, size=512, device="cpu")
+    rows = chip_smoke.compare_kernels(torch, seed=7, size=512, device="cpu",
+                                      stream_rows=512, stream_cols=384,
+                                      compact_rows=128)
     assert [r["name"] for r in rows] == ["fused_benefit", "auction_phase_gs",
-                                         "auction_warm_fused"]
+                                         "auction_warm_fused", "nms_exact",
+                                         "stream_sweep"]
     for r in rows:
         assert r["max_abs_err"] == 0.0
-        assert r["bound_ms"] > 0 and r["bound_by"] == "bytes"
+        assert r["bound_ms"] > 0
+        assert r["bound_by"] == ("operations" if r["name"] in (
+            "nms_exact", "stream_sweep") else "bytes")
         assert r["library_ms"] is None
+
+
+def test_close_pairs_counts_each_pair_once():
+    pts = np.float32([[0, 0, 0], [0.5, 0, 0], [3, 0, 0], [3, 0.9, 0]])
+    assert chip_smoke.close_pairs(torch, pts, 1.0) == 2
+    assert chip_smoke.close_pairs(torch, pts, 0.5, chunk=1) == 0
 
 
 def test_no_card_no_result():

@@ -78,13 +78,12 @@ def test_keypoint_sets(clouds, pca_both):
     assert len(a & b) >= 0.99 * len(a | b)
 
 
-def test_nms_gather_path_above_the_brute_band():
-    """Above 8192 candidates both packages take the K-capped neighbor-list
-    fixed point; the selections must be identical."""
+def _nms_both(n: int):
+    """Both packages' ``non_max_suppression`` on one random set of ``n``
+    slots with the same neighbour cap (k) and cell cap."""
     from ghicp_tpu.preprocess.keypoints import non_max_suppression as j_nms
     from ghicp_tpu_torch.preprocess.keypoints import non_max_suppression
     rng = np.random.default_rng(4)
-    n = 16384
     xyz = rng.uniform(0, 12, (n, 3)).astype(np.float32)
     curv = rng.random(n).astype(np.float32)
     cand = rng.random(n) < 0.7
@@ -95,5 +94,29 @@ def test_nms_gather_path_above_the_brute_band():
         PointCloud(xyz=torch.from_numpy(xyz), mask=torch.ones(n, dtype=bool)),
         torch.from_numpy(curv), torch.from_numpy(cand), radius=0.6, k=64,
         cell_cap=32, chunk=4096)
-    assert np.array_equal(np.asarray(js), ts.numpy())
-    assert int(jr) == tr and 0 < ts.sum() < cand.sum()
+    return np.asarray(js), int(jr), ts.numpy(), tr, cand
+
+
+def test_nms_gather_path_above_the_brute_band():
+    """Above 8192 slots, off the kernel's 256-slot tiling, both packages
+    take the K-capped neighbor-list fixed point; the selections must be
+    identical."""
+    from ghicp_tpu_torch.preprocess.keypoints import nms_path
+    n = 16400
+    assert nms_path(n) == "gather"
+    js, jr, ts, tr, cand = _nms_both(n)
+    assert np.array_equal(js, ts)
+    assert jr == tr and 0 < ts.sum() < cand.sum()
+
+
+def test_nms_kernel_band_matches_the_jax_gather_path():
+    """In (8192, 131072] on 256-slot tiles the port takes the exact-radius
+    fixed point of K4 (its plain version here) and the JAX package on the
+    CPU the K-capped gather path; where the cap does not bind, the
+    selections and the rounds must be identical."""
+    from ghicp_tpu_torch.preprocess.keypoints import nms_path
+    n = 16384
+    assert nms_path(n) == "kernel"
+    js, jr, ts, tr, cand = _nms_both(n)
+    assert np.array_equal(js, ts)
+    assert jr == tr and 0 < ts.sum() < cand.sum()
