@@ -120,10 +120,9 @@ class GHICPConfig:
     auction_warm_after: float = 8.0
     auction_warm_min_rows: int = 4096
     auction_phases: int = 1
-    fused_cost_kernel: bool = True        # the port always runs the fused
-                                          # benefit sweep on the KM lane
+    fused_cost_kernel: bool = True        # False: the XLA lane
     warm_fused_kernel: bool = True
-    streaming_cost: str = "auto"          # streaming lane not ported yet
+    streaming_cost: str = "auto"
     streaming_threshold: int = 16384
     stream_open_cap: int = 2048
     stream_refresh_every: int = 32
@@ -138,8 +137,8 @@ class GHICPConfig:
     # --- numerics ---
     use_mxu_hamming: bool = True          # inert: FD is always one matmul
     auction_bf16: bool = True
-    auction_round_kernel: bool = True     # inert: the GS phase kernel is the
-                                          # port's only auction path
+    auction_round_kernel: bool = True     # False: Jacobi rounds (K6), not
+                                          # the GS phase kernel
 
     def __post_init__(self):
         if self.reg_dof not in (4, 6):

@@ -298,3 +298,45 @@ def registration_problem(S: int, T: int, seed: int = 0,
         ham[v] = (bits_s[v].sum(1)[:, None] + bits_t[0].sum(1)[None, :]
                   - 2.0 * bits_s[v] @ bits_t[0].T)
     return src, tgt, ham.min(0), bits_s, bits_t, T_gt
+
+
+def station_graph(n_stations: int = 6, n_points: int = 250_000,
+                  extent: float = 18.0, seed: int = 21):
+    """The station graph of the JAX package's ``bench_configs.py`` config 5:
+    one structured scene seen from ``n_stations`` TLS stations, station i
+    at yaw 8 i degrees and shift (0.9 i, -0.6 i, 0.05 i) m, each cloud with
+    its own 6 mm noise; pairs are the chain (i + 1, i) plus the loop
+    closure (n - 1, 0).  Returns (clouds, poses_gt, pairs, config): pose i
+    maps station i's frame into the world (station 0's), and ``config`` is
+    config 5's BSC + KM setting."""
+    from ghicp_tpu_torch.core.config import (CorrespondenceType,
+                                             FeatureType, GHICPConfig)
+    rng = np.random.default_rng(seed)
+    pts = structured_scene(rng, n_points, extent=extent)
+
+    def rigid(theta_deg, t):
+        th = np.deg2rad(theta_deg)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = [[np.cos(th), -np.sin(th), 0],
+                     [np.sin(th), np.cos(th), 0], [0, 0, 1]]
+        T[:3, 3] = t
+        return T.astype(np.float32)
+
+    poses_gt = [rigid(8.0 * i, [0.9 * i, -0.6 * i, 0.05 * i])
+                for i in range(n_stations)]
+    clouds = []
+    for P in poses_gt:
+        R, t = P[:3, :3], P[:3, 3]
+        local = (pts - t) @ R   # world -> station frame
+        clouds.append((local + rng.normal(0, 0.006, pts.shape)
+                       ).astype(np.float32))
+    pairs = [(i + 1, i) for i in range(n_stations - 1)]
+    pairs.append((n_stations - 1, 0))   # loop closure
+    cfg = GHICPConfig(feature=FeatureType.BSC,
+                      correspondence=CorrespondenceType.KM,
+                      voxel_size=0.1, neighborhood_radius=0.5,
+                      non_max_radius=0.5, min_neighbors=15,
+                      bsc_neighbor_k=256, pca_cell_cap=40,
+                      pca_max_cells=65536, keypoint_capacity=8192,
+                      estimated_overlap=0.9, max_iterations=40)
+    return clouds, poses_gt, pairs, cfg

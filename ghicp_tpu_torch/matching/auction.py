@@ -2,33 +2,50 @@
 
 Forward auction with an outside option: each open row bids for its best
 column, ``bid = p[j1] + v1 - max(v2, sink) + eps``; columns go to the
-highest bidder; rows whose best surplus falls below the sink take it.  The
-solve runs through the Gauss-Seidel phase kernel
-(:func:`ghicp_tpu_torch.ops.auction_rounds.auction_phase_gs`), warm-started
-from the previous solve's prices and assignment: rows still satisfying
-eps-complementary slackness keep their columns and only the violators
-re-bid.  Semantics follow the JAX package's ``matching/auction.py`` (its
-single-device GS branch); the XLA Jacobi round loop and the sharded branch
-are not ported yet, so shapes the GS kernel does not take raise.
+highest bidder; rows whose best surplus falls below the sink take it.
+Warm starts reuse the previous solve's prices and assignment: rows still
+satisfying eps-complementary slackness keep their columns and only the
+violators re-bid.  Two branches, with the JAX package's dispatch
+(``matching/auction.py::auction_assign``):
+
+* Gauss-Seidel — with ``use_round_kernel``, one pair and the GS phase
+  kernel's shapes: each phase is one launch of
+  :func:`ghicp_tpu_torch.ops.auction_rounds.auction_phase_gs` (K2), over a
+  geometric epsilon ladder of ``n_phases`` rungs;
+* Jacobi — otherwise: synchronous bidding rounds, each one top-2 sweep
+  :func:`ghicp_tpu_torch.ops.top2.top2_rows` (K6) plus column-wise
+  scatter-max resolution, epsilon divided by ``EPS_SCALING`` between
+  phases.  Written over a leading pair axis ([P, R, C] benefits; a
+  single-pair call is P = 1): a pair with no open row, or out of budget,
+  keeps its state and its round counter while the others bid, the
+  semantics of the JAX package's vmapped ``while_loop``.  The loop is on
+  the host, with one read of the open-row counts a round (one for all
+  pairs) and one read a phase.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ghicp_tpu_torch.matching.matchers import MatchResult
 from ghicp_tpu_torch.ops.auction_rounds import auction_phase_gs, gs_tile_rows
+from ghicp_tpu_torch.ops.top2 import top2_rows
 
 NEG = -3.0e38
 SINK = 2**30      # "unmatched" pseudo-column (infinite capacity)
+EPS_SCALING = 5.0  # Jacobi ladder: epsilon divided by this between phases
 
 
 class AuctionResult(NamedTuple):
+    """One solve's result; every field gains a leading [P] axis when the
+    benefits have a pair axis."""
+
     match: MatchResult
     prices: torch.Tensor     # [C] final dual prices
     energy: torch.Tensor     # sum matched CD + penalty * n_unmatched
-    rounds: torch.Tensor     # sweeps executed
+    rounds: torch.Tensor     # sweeps (GS) or bidding rounds (Jacobi)
     eps_used: torch.Tensor   # terminal (escalated) epsilon bound
     acol: torch.Tensor       # [R] column, SINK or -1: next warm start
     cd_sel: torch.Tensor     # [R] CD at the assigned column
@@ -37,6 +54,11 @@ class AuctionResult(NamedTuple):
 
 def _f(x, dev) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32).to(dev)
+
+
+def _per_pair(x, P: int, dev) -> torch.Tensor:
+    """A scalar or [P] argument as a [P] float32 tensor."""
+    return _f(x, dev).reshape(-1).expand(P)
 
 
 def derive_acol(owner: torch.Tensor, sunk: torch.Tensor, R: int):
@@ -50,106 +72,162 @@ def derive_acol(owner: torch.Tensor, sunk: torch.Tensor, R: int):
     return torch.where((sunk == 1) & (acol < 0), SINK, acol)
 
 
-def _reopen_violators(b, sink_value, st, eps_prev, eps_now):
+def _drop_scatter(x: torch.Tensor, idx: torch.Tensor, src) -> torch.Tensor:
+    """``x`` [P, N] with ``x[p, idx[p, k]] = src`` where ``idx`` < N; index
+    N is dropped (the JAX ``mode="drop"`` scatter)."""
+    ext = torch.cat([x, x.new_zeros((x.shape[0], 1))], dim=1)
+    if not torch.is_tensor(src):
+        src = torch.full(idx.shape, src, dtype=x.dtype, device=x.device)
+    ext.scatter_(1, idx, src.expand(idx.shape).to(x.dtype))
+    return ext[:, :-1]
+
+
+def _select(keep_new: torch.Tensor, new, old):
+    """Per pair: ``new`` where ``keep_new`` [P], else ``old``."""
+    return tuple(torch.where(keep_new.reshape((-1,) + (1,) * (n.ndim - 1)),
+                             n, o) for n, o in zip(new, old))
+
+
+def _reopen_violators(b, sink, st, eps_prev, eps_now):
     """Deflate the +eps bid overshoot and unassign rows violating eps-CS
-    at the tightened epsilon (between phases of a multi-phase ladder)."""
+    at the tightened epsilon (between phases of a ladder).  b [P, R, C];
+    ``sink``, ``eps_prev``, ``eps_now`` [P]; state (owner [P, C], acol
+    [P, R], p [P, C]).  The cascade sweeps 2-4 run for the pairs whose
+    sweep 1 reopened a row (the JAX ``lax.cond``, picked per pair)."""
     owner, acol, p = st
-    R, C = b.shape
-    rows = torch.arange(R, device=b.device)
-    p = torch.clamp(p - (eps_prev - eps_now), min=0.0)
+    C = b.shape[-1]
+    p = torch.clamp(p - (eps_prev - eps_now)[:, None], min=0.0)
 
     def sweep(owner, acol, p):
-        v1 = torch.clamp(b.float() - p[None, :], min=sink_value).amax(dim=1)
-        cur = torch.where((acol >= 0) & (acol < C), acol, 0)
-        val = torch.where(acol == SINK, sink_value,
-                          b[rows, cur].float() - p[cur])
-        ok = (acol < 0) | (val >= v1 - eps_now)
-        col = torch.where(~ok & (acol >= 0) & (acol < C), acol, C)
-        ext = torch.cat([owner, owner.new_zeros(1)])
-        ext.scatter_(0, col, -1)
-        owner = ext[:C]
+        v1 = torch.maximum(b.float() - p[:, None, :],
+                           sink[:, None, None]).amax(dim=-1)
+        real = (acol >= 0) & (acol < C)
+        cur = torch.where(real, acol, 0)
+        val = torch.where(acol == SINK, sink[:, None],
+                          b.gather(-1, cur[..., None])[..., 0].float()
+                          - p.gather(-1, cur))
+        ok = (acol < 0) | (val >= v1 - eps_now[:, None])
+        owner = _drop_scatter(owner, torch.where(~ok & real, acol, C), -1)
         acol = torch.where(ok, acol, -1)
         p = torch.where(owner < 0, 0.0, p)
         return owner, acol, p
 
-    owner1, acol1, p1 = sweep(owner, acol, p)
-    if bool(((acol1 == -1) & (acol != -1)).any()):
+    st1 = sweep(owner, acol, p)
+    reopened = ((st1[1] == -1) & (acol != -1)).any(dim=-1)
+    if bool(reopened.any()):
+        st4 = st1
         for _ in range(3):
-            owner1, acol1, p1 = sweep(owner1, acol1, p1)
-    return owner1, acol1, p1
+            st4 = sweep(*st4)
+        st1 = _select(reopened, st4, st1)
+    return st1
 
 
-def auction_assign(b, sink_value, eps, max_rounds: int, rel_eps: float = 0.0,
-                   p0: Optional[torch.Tensor] = None, price_uncertainty=None,
-                   n_phases: int = 4, b_max=None,
-                   acol0: Optional[torch.Tensor] = None,
-                   hint_v1: Optional[torch.Tensor] = None,
-                   hint_vsel: Optional[torch.Tensor] = None,
-                   keep_slack_extra=None):
-    """Assignment on a benefit matrix b [R, C] (maximization) with an
-    outside option at ``sink_value``.  Returns (acol [R], prices [C],
-    rounds, eps_bound, punc [C])."""
+def _bidding_round(b, eps, sink, st):
+    """One synchronous (Jacobi) bidding round over [P, R, C] benefits at
+    epsilon ``eps`` [P] and outside option ``sink`` [P]; state (owner
+    [P, C], acol [P, R], p [P, C])."""
+    owner, acol, p = st
+    P, R, C = b.shape
+    unassigned = acol < 0
+    v1, j1, v2 = top2_rows(b, p)
+    j1 = j1.to(torch.int64)
+    to_sink = unassigned & (v1 <= sink[:, None])
+    acol = torch.where(to_sink, SINK, acol)
+    bidding = unassigned & ~to_sink
+    v2 = torch.maximum(v2, sink[:, None])
+    bid = ((p.gather(-1, j1) + v1) - v2) + eps[:, None]
+    bid = torch.where(bidding, bid, NEG)
+    win_bid = torch.full((P, C), NEG, dtype=torch.float32, device=b.device)
+    win_bid.scatter_reduce_(1, j1, bid, "amax")
+    wb = win_bid.gather(-1, j1)
+    is_best = bidding & (bid == wb) & (wb > NEG)
+    rows = torch.arange(R, device=b.device).expand(P, R)
+    # among equal best bids the highest row id wins (a scatter-max)
+    winner = torch.full((P, C), -1, dtype=torch.int64, device=b.device)
+    winner.scatter_reduce_(1, j1, torch.where(is_best, rows, -1), "amax")
+    has = winner >= 0
+    acol = _drop_scatter(acol, torch.where(has & (owner >= 0), owner, R), -1)
+    acol = _drop_scatter(acol, torch.where(has, winner, R),
+                         torch.arange(C, device=b.device))
+    owner = torch.where(has, winner, owner)
+    p = torch.where(has, win_bid, p)
+    return owner, acol, p
+
+
+def _esc_eps(eps, r, r0, esc_after, esc_period):
+    """eps * 2^(max(r - r0 - esc_after, 0) / esc_period), in float32."""
+    k = torch.as_tensor(np.maximum(r - r0 - esc_after, 0),
+                        dtype=torch.float32).to(eps.device)
+    return eps * torch.exp2(k / torch.as_tensor(
+        esc_period, dtype=torch.float32).to(eps.device))
+
+
+def _run_phase(b, eps, sink, st, r0: np.ndarray, max_rounds: np.ndarray,
+               run: np.ndarray):
+    """Bid until every row of each running pair is assigned (to a column or
+    the sink) or the pair's TOTAL round budget ``max_rounds`` is spent;
+    epsilon escalates geometrically past a quarter of the remaining budget.
+    Round counters are host integers.  Returns (state, rounds, terminal
+    escalated epsilon)."""
+    remaining = np.maximum(max_rounds - r0, 1)
+    esc_after = np.maximum(remaining // 4, 1)
+    esc_period = np.maximum(remaining // 16, 1)
+    r = r0.copy()
+    while True:
+        n_open = (st[1] < 0).sum(dim=-1).cpu().numpy()
+        go = run & (n_open > 0) & (r < max_rounds)
+        if not go.any():
+            break
+        new = _bidding_round(b, _esc_eps(eps, r + 1, r0, esc_after,
+                                         esc_period), sink, st)
+        st = _select(torch.as_tensor(go).to(b.device), new, st)
+        r = r + go
+    return st, r, _esc_eps(eps, r, r0, esc_after, esc_period)
+
+
+def _jacobi(b, sink, eps_final, eps0, st, max_rounds: np.ndarray,
+            active: np.ndarray):
+    """The epsilon-scaling ladder of Jacobi phases: from ``eps0`` divide by
+    ``EPS_SCALING`` down to ``eps_final``, reopening eps-CS violators only
+    when another phase follows.  Returns (owner, acol, p, rounds [P] host,
+    terminal epsilon [P])."""
+    dev = b.device
+    # XLA computes the division by the constant as a product with its
+    # float32 reciprocal; so does this, to the same bits
+    shrink = float(np.float32(1.0 / EPS_SCALING))
+    done = ~active
+    eps_now = eps0
+    rounds = np.zeros_like(max_rounds)
+    eps_term = eps_final
+    while not done.all():
+        run = ~done
+        st_new, r_new, term_new = _run_phase(b, eps_now, sink, st, rounds,
+                                             max_rounds, run)
+        at_final = (eps_now <= eps_final * 1.0001).cpu().numpy()
+        fin = at_final | (r_new >= max_rounds)
+        eps_next = torch.maximum(eps_now * shrink, eps_final)
+        again = run & ~fin
+        if again.any():
+            st_re = _reopen_violators(b, sink, st_new, eps_now, eps_next)
+            st_new = _select(torch.as_tensor(again).to(dev), st_re, st_new)
+        run_t = torch.as_tensor(run).to(dev)
+        st = _select(run_t, st_new, st)
+        eps_now, eps_term = _select(run_t, (eps_next, term_new),
+                                    (eps_now, eps_term))
+        rounds = np.where(run, r_new, rounds)
+        done = done | fin
+    return st[0], st[1], st[2], rounds, eps_term
+
+
+def _gs_phases(b, sink_t, eps_final, eps0, owner, acol, p, max_rounds: int,
+               n_phases: int):
+    """The GS branch for one pair: ``n_phases`` launches of K2 over a
+    geometric ladder from ``eps0`` to exactly ``eps_final``, with the CS
+    repair between phases and the last phase's in-kernel greedy
+    completion.  Returns (acol [R], p [C], sweeps, eps bound)."""
     R, C = b.shape
     dev = b.device
     ts = gs_tile_rows(C)
-    if not (R % ts == 0 and R % 128 == 0 and C % 128 == 0
-            and ts * C <= 256 * 8192):
-        raise NotImplementedError(
-            f"auction_assign: the GS phase kernel needs R % {ts} == 0, "
-            f"R, C % 128 == 0 (got {R}x{C}); the Jacobi round loop is not "
-            "ported yet")
-    row_gid = torch.arange(R, device=dev)
-    sink_t = _f(sink_value, dev)
-    if b_max is None:
-        bf = b.float()
-        b_max = torch.where(torch.isfinite(bf), bf, NEG).amax()
-    spread = torch.clamp(_f(b_max, dev) - sink_t, min=0.0)
-    eps_final = torch.maximum(_f(eps, dev), _f(rel_eps, dev) * spread)
-    cold_eps0 = (eps_final if n_phases <= 1
-                 else torch.maximum(spread / 8.0, eps_final))
-    if p0 is None:
-        eps0 = cold_eps0
-        p_init = torch.zeros((C,), dtype=torch.float32, device=dev)
-    else:
-        d = _f(price_uncertainty, dev)
-        eps0 = torch.minimum(torch.maximum(d.max(), eps_final), cold_eps0)
-        p_init = torch.clamp(p0 - d, min=0.0)
-    eps_keep = None
-    if acol0 is None:
-        owner_init = torch.full((C,), -1, dtype=torch.int64, device=dev)
-        acol_init = torch.full((R,), -1, dtype=torch.int64, device=dev)
-    else:
-        acol0 = acol0.to(torch.int64)
-        real0 = (acol0 >= 0) & (acol0 < C)
-        jc0 = torch.where(real0, acol0, 0)
-        # rebuild owners (duplicated columns keep the highest row)
-        owner_init = torch.full((C + 1,), -1, dtype=torch.int64, device=dev)
-        owner_init.scatter_reduce_(0, torch.where(real0, acol0, C),
-                                   torch.where(real0, row_gid, -1), "amax")
-        owner_init = owner_init[:C]
-        p_init = torch.where(owner_init >= 0, p_init, 0.0)
-        if hint_v1 is not None:
-            v1, vsel = hint_v1, hint_vsel
-        else:
-            v1 = (b.float() - p_init[None, :]).amax(dim=1)
-            vsel = b[row_gid, jc0].float() - p_init[jc0]
-        if keep_slack_extra is not None:
-            eps_keep = torch.minimum(
-                torch.maximum(_f(keep_slack_extra, dev) + 2.0 * eps_final,
-                              eps_final),
-                torch.maximum(spread / 8.0, eps_final))
-        else:
-            eps_keep = eps0
-        own_ok = real0 & (owner_init[jc0] == row_gid)
-        keep = own_ok & (vsel >= v1 - eps_keep)
-        stay_sunk = (acol0 == SINK) & (sink_t >= v1 - eps_keep)
-        rel = own_ok & ~keep
-        ext = torch.cat([owner_init, owner_init.new_zeros(1)])
-        ext.scatter_(0, torch.where(rel, acol0, C), -1)
-        owner_init = ext[:C]
-        acol_init = torch.where(keep, acol0, torch.where(stay_sunk, SINK, -1))
-
-    owner, acol, p = owner_init, acol_init, p_init
     sunk = (acol == SINK).to(torch.int32)
     open_ = (acol == -1).to(torch.int32)
     remaining = int(max_rounds)
@@ -168,8 +246,8 @@ def auction_assign(b, sink_value, eps, max_rounds: int, rel_eps: float = 0.0,
         esc_period = max(remaining // 16, 1)
         p, owner_k, sunk, r, gcol = auction_phase_gs(
             b, p, owner.to(torch.int32), sunk, open_, float(eps_now),
-            float(sink_t), remaining, ts=ts, esc_after=esc_after, esc_period=esc_period,
-            complete_open=(k == n_phases - 1))
+            float(sink_t), remaining, ts=ts, esc_after=esc_after,
+            esc_period=esc_period, complete_open=(k == n_phases - 1))
         owner = owner_k.to(torch.int64)
         r = int(r)
         remaining -= r
@@ -177,8 +255,11 @@ def auction_assign(b, sink_value, eps, max_rounds: int, rel_eps: float = 0.0,
         if k < n_phases - 1:
             eps_next = torch.maximum(eps0 * ratio ** (k + 1), eps_final)
             acol = derive_acol(owner, sunk, R)
-            owner, acol, p = _reopen_violators(b, sink_t, (owner, acol, p),
-                                               eps_now, eps_next)
+            st = _reopen_violators(
+                b[None], sink_t.reshape(1), (owner[None], acol[None],
+                                             p[None]),
+                eps_now.reshape(1), eps_next.reshape(1))
+            owner, acol, p = (x[0] for x in st)
             sunk = (acol == SINK).to(torch.int32)
             open_ = (acol == -1).to(torch.int32)
     acol = derive_acol(owner, sunk, R)
@@ -187,83 +268,206 @@ def auction_assign(b, sink_value, eps, max_rounds: int, rel_eps: float = 0.0,
                        torch.where(gcol < C, gcol, SINK), acol)
     eps_bound = eps_final * torch.exp2(
         _f(max(r - esc_after, 0), dev) / float(esc_period))
-    cert = eps_keep if acol0 is not None else _f(0.0, dev)
-    punc = torch.where(p != p_init, 2.0 * eps_bound, cert)
-    return acol, p, spent, eps_bound, punc
+    return acol, p, spent, eps_bound
+
+
+def _batched(x, single: bool):
+    """``x`` with a leading pair axis of 1 for a single-pair call."""
+    if x is None or not single:
+        return x
+    return torch.as_tensor(x)[None]
+
+
+def auction_assign(b, sink_value, eps, max_rounds, rel_eps: float = 0.0,
+                   p0: Optional[torch.Tensor] = None, price_uncertainty=None,
+                   use_round_kernel: bool = False, n_phases: int = 4,
+                   b_max=None, acol0: Optional[torch.Tensor] = None,
+                   hint_v1: Optional[torch.Tensor] = None,
+                   hint_vsel: Optional[torch.Tensor] = None,
+                   keep_slack_extra=None, active=None):
+    """Assignment on a benefit matrix b [R, C] or [P, R, C] (maximization)
+    with an outside option at ``sink_value`` (a scalar or [P]).  Per-pair
+    arguments gain the pair axis: ``p0``, ``acol0``, the hints; the
+    scalars ``max_rounds``, ``b_max`` and ``keep_slack_extra`` may be [P];
+    ``price_uncertainty`` is a scalar, [C] (one pair) or [P] / [P, C].
+    ``active`` [P] (host bools, default all) lists the pairs to solve; the
+    others keep their start state.  Returns (acol [R], prices [C], rounds,
+    eps_bound, punc [C]), each with the pair axis of ``b``."""
+    single = b.ndim == 2
+    if single:
+        b = b[None]
+        p0, acol0, hint_v1, hint_vsel = (_batched(x, True) for x in (
+            p0, acol0, hint_v1, hint_vsel))
+    P, R, C = b.shape
+    dev = b.device
+    rows = torch.arange(R, device=dev)
+    sink = _per_pair(sink_value, P, dev)
+    if b_max is None:
+        b_max = b.masked_fill(~torch.isfinite(b), float("-inf")).amax(
+            dim=(-2, -1)).float().clamp(min=NEG)
+    spread = torch.clamp(_per_pair(b_max, P, dev) - sink, min=0.0)
+    eps_final = torch.maximum(_per_pair(eps, P, dev), rel_eps * spread)
+    cold_eps0 = (eps_final if n_phases <= 1
+                 else torch.maximum(spread / 8.0, eps_final))
+    if p0 is None:
+        eps0 = cold_eps0
+        p_init = torch.zeros((P, C), dtype=torch.float32, device=dev)
+    else:
+        d = _f(price_uncertainty, dev)
+        d = d.reshape(1, -1) if single else (
+            d.reshape(-1, 1) if d.ndim < 2 else d)
+        eps0 = torch.minimum(torch.maximum(d.amax(dim=-1), eps_final),
+                             cold_eps0)
+        p_init = torch.clamp(p0.to(torch.float32) - d, min=0.0)
+    eps_keep = None
+    if acol0 is None:
+        owner_init = torch.full((P, C), -1, dtype=torch.int64, device=dev)
+        acol_init = torch.full((P, R), -1, dtype=torch.int64, device=dev)
+    else:
+        acol0 = acol0.to(torch.int64)
+        real0 = (acol0 >= 0) & (acol0 < C)
+        jc0 = torch.where(real0, acol0, 0)
+        # rebuild owners (duplicated columns keep the highest row)
+        owner_init = torch.full((P, C + 1), -1, dtype=torch.int64,
+                                device=dev)
+        owner_init.scatter_reduce_(1, torch.where(real0, acol0, C),
+                                   torch.where(real0, rows, -1), "amax")
+        owner_init = owner_init[:, :C]
+        p_init = torch.where(owner_init >= 0, p_init, 0.0)
+        if hint_v1 is not None:
+            v1, vsel = hint_v1, hint_vsel
+        else:
+            v1 = (b.float() - p_init[:, None, :]).amax(dim=-1)
+            vsel = (b.gather(-1, jc0[..., None])[..., 0].float()
+                    - p_init.gather(-1, jc0))
+        if keep_slack_extra is not None:
+            eps_keep = torch.minimum(
+                torch.maximum(_per_pair(keep_slack_extra, P, dev)
+                              + 2.0 * eps_final, eps_final),
+                torch.maximum(spread / 8.0, eps_final))
+        else:
+            eps_keep = eps0
+        own_ok = real0 & (owner_init.gather(-1, jc0) == rows)
+        keep = own_ok & (vsel >= v1 - eps_keep[:, None])
+        stay_sunk = (acol0 == SINK) & (sink[:, None] >= v1
+                                       - eps_keep[:, None])
+        owner_init = _drop_scatter(owner_init,
+                                   torch.where(own_ok & ~keep, acol0, C), -1)
+        acol_init = torch.where(keep, acol0,
+                                torch.where(stay_sunk, SINK, -1))
+
+    mr = np.broadcast_to(np.asarray(max_rounds, np.int64), (P,)).copy()
+    ts = gs_tile_rows(C)
+    if (use_round_kernel and P == 1 and R % ts == 0 and R % 128 == 0
+            and C % 128 == 0 and ts * C <= 256 * 8192):
+        acol, p, spent, eps_bound = _gs_phases(
+            b[0], sink[0], eps_final[0], eps0[0], owner_init[0],
+            acol_init[0], p_init[0], int(mr[0]), n_phases)
+        acol, p, eps_bound = acol[None], p[None], eps_bound.reshape(1)
+        rounds = np.array([spent])
+    else:
+        act = (np.ones(P, bool) if active is None
+               else np.asarray(active, bool))
+        _, acol, p, rounds, eps_bound = _jacobi(
+            b, sink, eps_final, eps0, (owner_init, acol_init, p_init), mr,
+            act)
+    cert = eps_keep if acol0 is not None else torch.zeros_like(eps_bound)
+    punc = torch.where(p != p_init, 2.0 * eps_bound[:, None], cert[:, None])
+    rounds = torch.as_tensor(rounds)
+    if single:
+        return acol[0], p[0], rounds[0], eps_bound[0], punc[0]
+    return acol, p, rounds, eps_bound, punc
+
+
+def _complete(acol, b, p, penalty, gate=None):
+    """Greedy completion of rows still open at budget exhaustion: each
+    takes its best column at the current prices (duplicates allowed), or
+    the sink.  Skipped (one host read) when no row is open."""
+    leftover = acol == -1
+    if not bool(leftover.any()):
+        return acol
+    v = b.float() - p[..., None, :]
+    if gate is not None:
+        v = v.masked_fill_(~gate, NEG)
+    j1 = torch.argmax(v, dim=-1)
+    del v
+    v1 = (b.gather(-1, j1[..., None])[..., 0].float() - p.gather(-1, j1))
+    if gate is not None:
+        v1 = torch.where(gate.gather(-1, j1[..., None])[..., 0], v1, NEG)
+    return torch.where(leftover, torch.where(v1 > -penalty[..., None], j1,
+                                             SINK), acol)
 
 
 def _finish(real, acol, jc, penalty, S, T, p, rounds, eps_used, punc,
             cd_sel):
     w = real.to(torch.float32)
-    cor = w.sum()
-    matched_cd = torch.where(real, cd_sel, 0.0).sum()
+    cor = w.sum(dim=-1)
+    matched_cd = torch.where(real, cd_sel, 0.0).sum(dim=-1)
     energy = matched_cd + penalty * (float(max(S, T)) - cor)
     match = MatchResult(tgt_idx=jc, w=w, n_matches=cor.to(torch.int64))
     return AuctionResult(match=match, prices=p, energy=energy,
-                         rounds=torch.as_tensor(rounds), eps_used=eps_used,
-                         acol=acol, cd_sel=cd_sel, punc=punc)
+                         rounds=rounds, eps_used=eps_used, acol=acol,
+                         cd_sel=cd_sel, punc=punc)
 
 
 def auction_match_benefits(b, penalty, mask_s, mask_t,
-                           eps_final: float = 0.01, max_rounds: int = 8000,
+                           eps_final: float = 0.01, max_rounds=8000,
                            rel_eps: float = 0.0, p0=None,
-                           price_uncertainty=None, n_phases: int = 2,
-                           b_max=None, acol0=None, hint_v1=None,
-                           hint_vsel=None,
-                           keep_slack_extra=None) -> AuctionResult:
-    """Auction on a prebuilt benefit matrix b [S, T] (-CD at candidate
-    pairs, very negative at masked pairs); the penalty gate is the sink."""
-    S, T = b.shape
+                           price_uncertainty=None,
+                           use_round_kernel: bool = False,
+                           n_phases: int = 2, b_max=None, acol0=None,
+                           hint_v1=None, hint_vsel=None,
+                           keep_slack_extra=None,
+                           active=None) -> AuctionResult:
+    """Auction on a prebuilt benefit matrix b [S, T] or [P, S, T] (-CD at
+    candidate pairs, very negative at masked pairs); the penalty gate is
+    the sink."""
+    S, T = b.shape[-2:]
     dev = b.device
     penalty = _f(penalty, dev)
     acol, p, rounds, eps_used, punc = auction_assign(
         b, -penalty, eps_final, max_rounds, rel_eps=rel_eps, p0=p0,
-        price_uncertainty=price_uncertainty, n_phases=n_phases, b_max=b_max,
+        price_uncertainty=price_uncertainty,
+        use_round_kernel=use_round_kernel, n_phases=n_phases, b_max=b_max,
         acol0=acol0, hint_v1=hint_v1, hint_vsel=hint_vsel,
-        keep_slack_extra=keep_slack_extra)
-    rows = torch.arange(S, device=dev)
-    leftover = acol == -1
-    if bool(leftover.any()):
-        j1 = torch.argmax(b.float() - p[None, :], dim=1)
-        v1 = b[rows, j1].float() - p[j1]
-        acol = torch.where(leftover, torch.where(v1 > -penalty, j1, SINK),
-                           acol)
+        keep_slack_extra=keep_slack_extra, active=active)
+    acol = _complete(acol, b, p, penalty)
     matched = (acol >= 0) & (acol < T)
     jc = torch.where(matched, acol, 0)
-    bsel = b[rows, jc].float()
-    real = mask_s & matched & (bsel > -penalty)
+    bsel = b.gather(-1, jc[..., None])[..., 0].float()
+    real = mask_s & matched & (bsel > -penalty[..., None])
     return _finish(real, acol, jc, penalty, S, T, p, rounds, eps_used, punc,
                    -bsel)
 
 
 def auction_match(cd, penalty, mask_s, mask_t, eps_final: float = 0.01,
-                  max_rounds: int = 8000, rel_eps: float = 0.0, p0=None,
-                  price_uncertainty=None, n_phases: int = 4, acol0=None,
-                  keep_slack_extra=None) -> AuctionResult:
+                  max_rounds=8000, rel_eps: float = 0.0, p0=None,
+                  price_uncertainty=None, quantize_bf16: bool = False,
+                  use_round_kernel: bool = False, n_phases: int = 4,
+                  acol0=None, keep_slack_extra=None,
+                  active=None) -> AuctionResult:
     """Global-optimal correspondence via auction on a cost matrix cd
-    [S, T] (+inf at invalid pairs): maximize the matched (penalty - CD)
-    over gated pairs with rows free to stay unmatched.  The benefits are
-    stored in bf16, the type the Gauss-Seidel phase kernel takes."""
-    S, T = cd.shape
+    [S, T] or [P, S, T] (+inf at invalid pairs): maximize the matched
+    (penalty - CD) over gated pairs with rows free to stay unmatched.
+    ``quantize_bf16`` stores the benefits in bf16 (the type the GS phase
+    kernel takes; the Jacobi lane takes either)."""
+    S, T = cd.shape[-2:]
     dev = cd.device
     penalty = _f(penalty, dev)
-    gate = torch.isfinite(cd) & (cd < penalty)
-    b = torch.where(gate, -cd, NEG).to(torch.bfloat16)
+    gate = torch.isfinite(cd) & (cd < penalty[..., None, None])
+    b = cd.neg().masked_fill_(~gate, NEG)
+    if quantize_bf16:
+        b = b.to(torch.bfloat16)
     acol, p, rounds, eps_used, punc = auction_assign(
         b, -penalty, eps_final, max_rounds, rel_eps=rel_eps, p0=p0,
-        price_uncertainty=price_uncertainty, n_phases=n_phases,
-        acol0=acol0, keep_slack_extra=keep_slack_extra)
-    rows = torch.arange(S, device=dev)
-    leftover = acol == -1
-    if bool(leftover.any()):
-        j1 = torch.argmax(torch.where(gate, b.float() - p[None, :], NEG),
-                          dim=1)
-        v1 = torch.where(gate[rows, j1], b[rows, j1].float() - p[j1], NEG)
-        acol = torch.where(leftover, torch.where(v1 > -penalty, j1, SINK),
-                           acol)
+        price_uncertainty=price_uncertainty,
+        use_round_kernel=use_round_kernel, n_phases=n_phases,
+        acol0=acol0, keep_slack_extra=keep_slack_extra, active=active)
+    acol = _complete(acol, b, p, penalty, gate)
+    del b
     matched = (acol >= 0) & (acol < T)
     jc = torch.where(matched, acol, 0)
-    cd_sel = cd[rows, jc]
-    real = mask_s & matched & gate[rows, jc]
+    cd_sel = cd.gather(-1, jc[..., None])[..., 0]
+    real = mask_s & matched & gate.gather(-1, jc[..., None])[..., 0]
     return _finish(real, acol, jc, penalty, S, T, p, rounds, eps_used, punc,
                    cd_sel)

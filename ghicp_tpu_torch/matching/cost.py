@@ -6,7 +6,9 @@
 * ``blend_bsc`` — CD = W_ED * ED + W_FD * FD, W_FD = exp(-iter / rate),
   with the penalty schedule of :func:`bsc_penalty`.
 
-Masked pairs carry CD = +inf; statistics run over valid pairs only.
+Masked pairs carry CD = +inf; statistics run over valid pairs only.  Both
+take an optional leading pair axis ([P, S, 3] keypoints, [P, S, T]
+matrices) and then compute their statistics per pair.
 """
 from __future__ import annotations
 
@@ -23,30 +25,37 @@ class CostResult(NamedTuple):
 
 
 def cross3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """[S, T] dot products of [S, 3] and [T, 3] rows, each product and sum
-    rounded in float32 in a fixed order (the kernels use the same order,
-    so plain and kernel results agree bit for bit)."""
-    return ((a[:, 0:1] * b[None, :, 0] + a[:, 1:2] * b[None, :, 1])
-            + a[:, 2:3] * b[None, :, 2])
+    """[..., S, T] dot products of [..., S, 3] and [..., T, 3] rows, each
+    product and sum rounded in float32 in a fixed order (the kernels use
+    the same order, so plain and kernel results agree bit for bit)."""
+    return ((a[..., 0:1] * b[..., None, :, 0]
+             + a[..., 1:2] * b[..., None, :, 1])
+            + a[..., 2:3] * b[..., None, :, 2])
 
 
 def sq_norm3(a: torch.Tensor) -> torch.Tensor:
     """|a|^2 per row in the same fixed order as :func:`cross3`."""
-    return (a[:, 0] * a[:, 0] + a[:, 1] * a[:, 1]) + a[:, 2] * a[:, 2]
+    return ((a[..., 0] * a[..., 0] + a[..., 1] * a[..., 1])
+            + a[..., 2] * a[..., 2])
 
 
 def euclidean_matrix(src: torch.Tensor, tgt: torch.Tensor,
                      scale) -> torch.Tensor:
-    """ED[i, j] = scale * ||src_i - tgt_j||."""
-    d2 = torch.clamp((sq_norm3(src)[:, None] + sq_norm3(tgt)[None, :])
-                     - 2.0 * cross3(src, tgt), min=0.0)
-    return scale * torch.sqrt(d2)
+    """ED[..., i, j] = scale * ||src_i - tgt_j|| (``scale`` a scalar, or
+    [P, 1, 1] with a pair axis).  Updated in place after the cross term:
+    one [..., S, T] buffer beside cross3's temporaries."""
+    d2 = cross3(src, tgt).mul_(-2.0).add_(
+        sq_norm3(src)[..., :, None] + sq_norm3(tgt)[..., None, :])
+    return d2.clamp_(min=0.0).sqrt_().mul_(scale)
 
 
 def _masked_stats(x: torch.Tensor, m: torch.Tensor):
-    n = torch.clamp(m.to(torch.float32).sum(), min=1.0)
-    s1 = torch.where(m, x, 0.0).sum()
-    s2 = torch.where(m, x * x, 0.0).sum()
+    """Mean and std of ``x`` over mask ``m``, per matrix of the last two
+    axes."""
+    n = torch.clamp(m.sum(dim=(-2, -1)).to(torch.float32), min=1.0)
+    xm = torch.where(m, x, 0.0)
+    s1 = xm.sum(dim=(-2, -1))
+    s2 = xm.mul_(xm).sum(dim=(-2, -1))
     mean = s1 / n
     var = torch.clamp(s2 / n - mean * mean, min=0.0)
     return mean, torch.sqrt(var)
@@ -66,14 +75,15 @@ def bsc_penalty(mean, std, iteration, rms, fdm, fdstd, para1, para2, scale,
 def blend_bsc(ed, fd, mask_s, mask_t, iteration, rms, fdm, fdstd, para1,
               para2, scale, weight_changing_rate: float,
               penalty_initial: float) -> CostResult:
-    """Hybrid BSC cost + penalty schedule."""
-    m = mask_s[:, None] & mask_t[None, :]
-    wfd = torch.exp(-torch.as_tensor(iteration, dtype=torch.float32)
-                    / weight_changing_rate)
+    """Hybrid BSC cost + penalty schedule.  With a pair axis,
+    ``iteration`` and the state scalars are [P] tensors."""
+    m = mask_s[..., :, None] & mask_t[..., None, :]
+    it = torch.as_tensor(iteration, dtype=torch.float32, device=ed.device)
+    wfd = torch.exp(-it / weight_changing_rate)
     wed = 1.0 - wfd
-    cd = wed * ed + wfd * fd
+    cd = (ed * wed[..., None, None]).add_(fd * wfd[..., None, None])
     mean, std = _masked_stats(cd, m)
-    penalty = bsc_penalty(mean, std, iteration, rms, fdm, fdstd, para1,
+    penalty = bsc_penalty(mean, std, it, rms, fdm, fdstd, para1,
                           para2, scale, wed, wfd, penalty_initial)
-    return CostResult(cd=torch.where(m, cd, torch.inf), penalty=penalty,
+    return CostResult(cd=cd.masked_fill_(~m, torch.inf), penalty=penalty,
                       cd_mean=mean, cd_std=std)

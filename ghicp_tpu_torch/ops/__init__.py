@@ -11,7 +11,7 @@ import torch
 
 LAUNCHES: dict[str, int] = {"fused_benefit": 0, "auction_phase_gs": 0,
                             "auction_warm_fused": 0, "nms_exact": 0,
-                            "stream_sweep": 0}
+                            "stream_sweep": 0, "top2_rows": 0}
 
 
 def count_launch(name: str) -> None:

@@ -1,1 +1,2 @@
-"""Rigid estimators, the GH-ICP engine and the end-to-end pipeline."""
+"""Rigid estimators, the GH-ICP engine, the end-to-end pipeline and
+station graphs."""

@@ -2,9 +2,10 @@
 
 One iteration (:func:`make_body`): ED + CD blend -> auction matching ->
 margin-weighted robust Kabsch with Tukey IRLS -> convergence test -> IoU
-penalty-weight step.  On the dense lane the feature distance is computed
-once before the loop and two solve branches run, with the JAX package's
-gate:
+penalty-weight step.  The feature distance is computed once before the
+loop.  The dense kernel lane (``fused_cost_kernel`` and keypoint
+capacities that are multiples of 128, the JAX package's gate) runs two
+solve branches:
 
 * the full solve — the fused benefit sweep (kernel K1) builds the bf16
   benefit matrix, the CD statistics and the warm-start hints, then the
@@ -13,6 +14,15 @@ gate:
   assignment warm start exists (it > 1), at S, T >= 1024, one launch of
   the warm fused kernel (K3) does the whole solve.
 
+Otherwise the dense lane is the XLA lane (:func:`make_batched_body`): ED,
+the BSC blend and its penalty as plain tensor passes, then
+:func:`ghicp_tpu_torch.matching.auction.auction_match` (the Jacobi rounds
+with kernel K6, or the GS kernel under ``auction_round_kernel`` where its
+shapes allow).  It is written over a leading pair axis:
+:func:`ghicp_register_batched` runs one engine over P pairs, a pair that
+has converged or reached ``max_iterations`` keeping its state (the JAX
+package's vmapped ``while_loop``); a single pair runs it with P = 1.
+
 On the streaming lane (``stream``: packed BSC factors, no FD matrix) every
 iteration is one matrix-free solve
 (:func:`ghicp_tpu_torch.matching.stream_auction.stream_solve`, sweeps of
@@ -20,15 +30,19 @@ kernel K5), with a :class:`StreamCarry` of hints from one iteration to the
 next that lets statistics-free iterations skip sweep 0.
 
 The loop is a host loop with one read of ``converged`` per iteration.
-After it, the dense lane runs one full-budget warm re-solve at the final
-pose for the one-to-one matching the success verdict reads; the streaming
-lane deduplicates its last matching instead (:func:`final_resolve`).
+:func:`ghicp_register` stops there, as the JAX package's does.
+:func:`ghicp_register_chunked` then runs the one-to-one final matching
+(:func:`final_resolve`): on the dense lanes one full-budget warm re-solve
+at the final pose, on the streaming lane a deduplication of the last
+matching.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ghicp_tpu_torch.core import transform as tf
@@ -38,7 +52,8 @@ from ghicp_tpu_torch.core.device import resolve_device
 from ghicp_tpu_torch.matching.auction import (SINK, auction_match,
                                               auction_match_benefits,
                                               derive_acol)
-from ghicp_tpu_torch.matching.cost import bsc_penalty, euclidean_matrix
+from ghicp_tpu_torch.matching.cost import (blend_bsc, bsc_penalty,
+                                           euclidean_matrix)
 from ghicp_tpu_torch.matching.matchers import MatchResult
 from ghicp_tpu_torch.matching.stream_auction import (StreamCarry, carry_init,
                                                      stream_solve)
@@ -68,6 +83,10 @@ class IterationMetrics(NamedTuple):
 
 
 class GHICPResult(NamedTuple):
+    """One registration; the batched engine's fields gain a leading [P]
+    axis (``iterations``, ``converged``, ``success`` and ``final_rmse``
+    then are [P] tensors)."""
+
     transform: torch.Tensor   # [4, 4] source -> target
     iterations: int
     converged: bool
@@ -78,6 +97,9 @@ class GHICPResult(NamedTuple):
 
 
 class _State(NamedTuple):
+    """Loop state; the batched engine's tensors gain a leading [P] axis and
+    ``it`` / ``converged`` are then host arrays [P]."""
+
     kps: torch.Tensor         # [S, 3] current source keypoints
     rt: torch.Tensor          # [4, 4] accumulated transform
     it: int
@@ -96,7 +118,7 @@ class _State(NamedTuple):
     pen_prev: torch.Tensor    # previous iteration's penalty
     it_shift: float           # schedule offset of W_FD
     scarry: StreamCarry       # streaming lane's hint carry (ok=False on the
-                              # dense lane)
+                              # dense lane, None on the batched engine)
 
 
 def _f(x, dev) -> torch.Tensor:
@@ -117,27 +139,37 @@ def blend_weights(it_eff: float, config: GHICPConfig):
 
 
 def masked_median_log(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """Median of ``x`` over mask ``m`` via a 128-bin log10 histogram over
-    1e-4..1e3 (resolution one bin, ~13%)."""
+    """Median of ``x`` over mask ``m`` along the last axis via a 128-bin
+    log10 histogram over 1e-4..1e3 (resolution one bin, ~13%); one
+    histogram per leading index (per pair on the batched engine)."""
     lo, hi, nb = -4.0, 3.0, 128
     lx = torch.log10(torch.clamp(x, min=1e-6))
     bi = torch.clamp(((lx - lo) / (hi - lo) * nb).to(torch.int64), 0, nb - 1)
-    hist = torch.bincount(bi[m], minlength=nb)
-    csum = torch.cumsum(hist, 0)
-    n = csum[-1]
-    med_bin = torch.argmax((csum >= (n + 1) // 2).to(torch.int32))
+    lead = x.shape[:-1]
+    n_hist = math.prod(lead)
+    off = torch.arange(n_hist, device=x.device).reshape(lead + (1,)) * nb
+    hist = torch.bincount((bi + off)[m], minlength=n_hist * nb)
+    csum = torch.cumsum(hist.reshape(lead + (nb,)), -1)
+    n = csum[..., -1:]
+    med_bin = torch.argmax((csum >= (n + 1) // 2).to(torch.int32), dim=-1)
     return torch.pow(torch.tensor(10.0, device=x.device),
                      lo + (med_bin.to(torch.float32) + 0.5) * (hi - lo) / nb)
 
 
+def _rows_of(pts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``pts[idx]`` per pair: [..., T, 3] rows at [..., S] indices."""
+    return pts.gather(-2, idx[..., None].expand(idx.shape + (3,)))
+
+
 def matched_stats(src_pts, tgt_pts, fsel, tgt_idx, w):
-    """RMSE / FDM / FDstd over matched pairs."""
-    t = tgt_pts[tgt_idx]
-    n = torch.clamp(w.sum(), min=1.0)
-    se = (w * ((src_pts - t) ** 2).sum(dim=-1)).sum()
+    """RMSE / FDM / FDstd over matched pairs (per pair with a pair
+    axis)."""
+    t = _rows_of(tgt_pts, tgt_idx)
+    n = torch.clamp(w.sum(dim=-1), min=1.0)
+    se = (w * ((src_pts - t) ** 2).sum(dim=-1)).sum(dim=-1)
     rmse = torch.sqrt(se / n)
-    s1 = (w * fsel).sum()
-    s2 = (w * fsel * fsel).sum()
+    s1 = (w * fsel).sum(dim=-1)
+    s2 = (w * fsel * fsel).sum(dim=-1)
     fdm = s1 / n
     fdstd = torch.sqrt(torch.clamp(s2 / n - fdm * fdm, min=0.0))
     return rmse, fdm, fdstd
@@ -146,49 +178,74 @@ def matched_stats(src_pts, tgt_pts, fsel, tgt_idx, w):
 def initial_state(kp_s: torch.Tensor, n_target: int, config: GHICPConfig,
                   init_transform: Optional[torch.Tensor] = None,
                   it_shift: float = 0.0) -> _State:
-    """Loop state at iteration 0 (optionally from a coarse pose)."""
+    """Loop state at iteration 0 (optionally from a coarse pose); with
+    kp_s [P, S, 3] (and init_transform [P, 4, 4]) the batched engine's."""
     dev = kp_s.device
-    S = kp_s.shape[0]
+    lead, S = kp_s.shape[:-2], kp_s.shape[-2]
     I = config.max_iterations
     if init_transform is None:
-        rt0, kps0 = tf.identity(dev), kp_s
+        rt0 = tf.identity(dev).expand(lead + (4, 4)).clone()
+        kps0 = kp_s
     else:
         rt0 = init_transform.to(dev, torch.float32)
         kps0 = tf.apply(rt0, kp_s)
-    zf = torch.zeros((I,), dtype=torch.float32, device=dev)
-    zi = torch.zeros((I,), dtype=torch.int64, device=dev)
-    metrics = IterationMetrics(energy=zf.clone(), rmse=zf.clone(),
-                               rmse_after=zf.clone(), cor=zi.clone(),
-                               iou=zf.clone(), penalty=zf.clone(),
-                               rounds=zi.clone(), open_rows=zi.clone(),
-                               compact_sweeps=zi.clone(), fast=zi.clone())
+    full = lambda v, shape=lead, dt=torch.float32: torch.full(
+        shape, v, dtype=dt, device=dev)
+    zf = lambda: full(0.0, lead + (I,))
+    zi = lambda: full(0, lead + (I,), torch.int64)
+    metrics = IterationMetrics(energy=zf(), rmse=zf(), rmse_after=zf(),
+                               cor=zi(), iou=zf(), penalty=zf(),
+                               rounds=zi(), open_rows=zi(),
+                               compact_sweeps=zi(), fast=zi())
     return _State(
-        kps=kps0, rt=rt0, it=0, converged=False, rms=_f(99999.0, dev),
-        fdm=_f(0.0, dev), fdstd=_f(0.0, dev),
-        para1=_f(config.para1_penalty, dev),
-        para2=_f(config.para2_penalty, dev), metrics=metrics,
-        matches=torch.full((S,), -1, dtype=torch.int64, device=dev),
-        rmse_after=_f(float("inf"), dev),
-        prices=torch.zeros((n_target,), dtype=torch.float32, device=dev),
-        acol=torch.full((S,), -1, dtype=torch.int64, device=dev),
-        price_unc=torch.full((n_target,), 3.0e38, dtype=torch.float32,
-                             device=dev),
-        pen_prev=_f(0.0, dev), it_shift=float(it_shift),
-        scarry=carry_init(S, dev))
+        kps=kps0, rt=rt0, it=np.zeros(lead, np.int64) if lead else 0,
+        converged=np.zeros(lead, bool) if lead else False,
+        rms=full(99999.0), fdm=full(0.0), fdstd=full(0.0),
+        para1=full(config.para1_penalty), para2=full(config.para2_penalty),
+        metrics=metrics, matches=full(-1, lead + (S,), torch.int64),
+        rmse_after=full(float("inf")),
+        prices=full(0.0, lead + (n_target,)),
+        acol=full(-1, lead + (S,), torch.int64),
+        price_unc=full(3.0e38, lead + (n_target,)),
+        pen_prev=full(0.0), it_shift=float(it_shift),
+        scarry=None if lead else carry_init(S, dev))
 
 
-def _check_lane(config: GHICPConfig, S: int, T: int, stream: bool) -> None:
+def _check_lane(config: GHICPConfig, S: int, T: int, stream: bool,
+                kernel_lane: bool) -> None:
     if (config.feature != FeatureType.BSC
             or config.correspondence != CorrespondenceType.KM):
         raise NotImplementedError(
             "the port's engine runs the BSC + KM lanes only")
-    if not stream and not config.auction_bf16:
+    if kernel_lane and not config.auction_bf16:
         raise NotImplementedError(
-            "the port's kernels take a bf16 FD / benefit matrix; "
-            "auction_bf16=False is not ported yet")
-    if S % 128 or T % 128:
+            "the kernel lane takes a bf16 FD / benefit matrix; "
+            "auction_bf16=False runs on the XLA lane "
+            "(fused_cost_kernel=False)")
+    if stream and (S % 128 or T % 128):
         raise ValueError(f"keypoint capacities must be multiples of 128 "
                          f"(got {S}, {T})")
+
+
+def _pairs_of(st: _State) -> _State:
+    """A single-pair state as the batched engine's, P = 1 (views: the
+    metrics buffers are shared)."""
+    add = lambda x: x[None] if torch.is_tensor(x) else x
+    return st._replace(
+        **{f: add(getattr(st, f)) for f in st._fields
+           if f not in ("it", "converged", "metrics")},
+        it=np.array([st.it]), converged=np.array([st.converged]),
+        metrics=IterationMetrics(*(x[None] for x in st.metrics)))
+
+
+def _pair_of(st: _State) -> _State:
+    """The single-pair state of a P = 1 batched state."""
+    one = lambda x: x[0] if torch.is_tensor(x) else x
+    return st._replace(
+        **{f: one(getattr(st, f)) for f in st._fields
+           if f not in ("it", "converged", "metrics")},
+        it=int(st.it[0]), converged=bool(st.converged[0]),
+        metrics=IterationMetrics(*(x[0] for x in st.metrics)))
 
 
 def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
@@ -197,7 +254,14 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
     ``stream`` (and ``fd`` None) on the streaming lane."""
     S, T = mask_s.shape[0], kp_t.shape[0]
     use_stream = stream is not None
-    _check_lane(config, S, T, use_stream)
+    kernel_lane = (not use_stream and config.fused_cost_kernel
+                   and S % 128 == 0 and T % 128 == 0)
+    _check_lane(config, S, T, use_stream, kernel_lane)
+    if not use_stream and not kernel_lane:
+        xla = make_batched_body(kp_t[None], mask_s[None], mask_t[None],
+                                fd[None], [bbx_magnitude], config)
+        one = np.ones(1, bool)
+        return lambda st: _pair_of(xla(_pairs_of(st), one))
     dev = kp_t.device
     scale = _f32(config.scale_factor * _f32(bbx_magnitude))
     scale_t = _f(scale, dev)
@@ -212,6 +276,7 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
     fd_b = None if use_stream else fd.to(torch.bfloat16)
     ts_gs = gs_tile_rows(T)
     use_warm_kernel = (not use_stream and config.warm_fused_kernel
+                       and config.auction_round_kernel
                        and config.auction_phases == 1
                        and S % ts_gs == 0 and S >= 1024 and T >= 1024
                        and ts_gs * T <= 256 * 8192)
@@ -232,6 +297,7 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
             b, penalty, mask_s, mask_t, eps_final=config.km_eps,
             max_rounds=budget, rel_eps=config.auction_rel_eps, p0=st.prices,
             price_uncertainty=st.price_unc + dpen,
+            use_round_kernel=config.auction_round_kernel,
             n_phases=config.auction_phases, b_max=b_max, acol0=st.acol,
             hint_v1=v1_mid + dpen, hint_vsel=vsel_mid, keep_slack_extra=dpen)
         return (ares.match, ares.energy, ares.rounds, ares.prices, ares.acol,
@@ -446,6 +512,123 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
     return body
 
 
+def make_batched_body(kp_t, mask_s, mask_t, fd, bbx_magnitude,
+                      config: GHICPConfig):
+    """One GH-ICP iteration of the XLA lane over a leading pair axis, as a
+    function ``(_State, active) -> _State``: kp_t [P, T, 3], masks [P, S] /
+    [P, T], fd [P, S, T], ``bbx_magnitude`` P host floats; ``active`` [P]
+    host bools.  Every pair runs the iteration; the inactive ones keep
+    their state.  Per pair: ED and the BSC blend with its CD-statistics
+    penalty, the auction with the price and assignment warm start, then
+    the same tail as :func:`make_body`."""
+    P, S = mask_s.shape
+    T = kp_t.shape[1]
+    dev = kp_t.device
+    fd = fd.to(torch.float32)
+    scale = torch.tensor([_f32(config.scale_factor * _f32(x))
+                          for x in bbx_magnitude], device=dev)
+    pair_mask = mask_s[:, :, None] & mask_t[:, None, :]
+    ns = mask_s.to(torch.float32).sum(dim=-1)
+    nt = mask_t.to(torch.float32).sum(dim=-1)
+    warm_budget = (config.auction_warm_rounds > 0
+                   and S >= config.auction_warm_min_rows)
+    r = config.weight_changing_rate
+
+    def body(st: _State, active: np.ndarray) -> _State:
+        it_eff = (st.it.astype(np.float32)
+                  + np.float32(st.it_shift)).astype(np.float32)
+        budget = np.where(warm_budget & (st.it > config.auction_warm_after),
+                          config.auction_warm_rounds,
+                          config.auction_max_rounds)
+        ed = euclidean_matrix(st.kps, kp_t, scale[:, None, None])
+        cost = blend_bsc(ed, fd, mask_s, mask_t, torch.from_numpy(it_eff),
+                         st.rms, st.fdm, st.fdstd, st.para1, st.para2,
+                         scale, r, config.penalty_initial)
+        ed_max = ed.masked_fill_(~pair_mask, 0.0).amax(dim=(-2, -1))
+        del ed
+        penalty = cost.penalty
+        dpen = torch.abs(penalty - st.pen_prev)
+        ares = auction_match(
+            cost.cd, penalty, mask_s, mask_t, eps_final=config.km_eps,
+            max_rounds=budget, rel_eps=config.auction_rel_eps,
+            p0=st.prices, price_uncertainty=st.price_unc + dpen[:, None],
+            quantize_bf16=config.auction_bf16,
+            use_round_kernel=config.auction_round_kernel,
+            n_phases=config.auction_phases, acol0=st.acol,
+            keep_slack_extra=dpen, active=active)
+        del cost
+        w, tgt_idx = ares.match.w, ares.match.tgt_idx
+        cor = w.sum(dim=-1)
+        fsel = fd.gather(-1, tgt_idx[..., None])[..., 0]
+        rmse, fdm, fdstd = matched_stats(st.kps, kp_t, fsel, tgt_idx, w)
+        iou = cor / torch.clamp(ns + nt - cor, min=1.0)
+        tgt_pts = _rows_of(kp_t, tgt_idx)
+        w_est = w
+        if config.confidence_weighting:
+            margin = torch.clamp(penalty[:, None] - ares.cd_sel, min=0.0)
+            margin = torch.where(w > 0, margin, 0.0)
+            msum = torch.clamp(margin.sum(dim=-1), min=1e-12)
+            nw = torch.clamp(w.sum(dim=-1), min=1.0)
+            w_est = margin * (nw / msum)[:, None]
+        rt_step = estimate(st.kps, tgt_pts, w_est, dof=config.reg_dof)
+        for _ in range(config.robust_irls_rounds):
+            resid = torch.linalg.norm(tf.apply(rt_step, st.kps) - tgt_pts,
+                                      dim=-1)
+            rscale = masked_median_log(resid, w_est > 0)
+            c = config.robust_trim_c * rscale + 1e-12
+            u = torch.clamp(resid / c[:, None], max=1.0)
+            wr = w_est * (1.0 - u * u) ** 2
+            rt_step = estimate(st.kps, tgt_pts, wr, dof=config.reg_dof)
+        ang = tf.euler_deg_zyx(tf.rotation(rt_step))
+        small = ((torch.abs(tf.translation(rt_step))
+                  < config.converge_translation).all(dim=-1)
+                 & (torch.abs(ang) < config.converge_rotation).all(dim=-1))
+        kps_new = tf.apply(rt_step, st.kps)
+        se_after = (w * ((kps_new - tgt_pts) ** 2).sum(dim=-1)).sum(dim=-1)
+        rmse_after = torch.sqrt(se_after / torch.clamp(cor, min=1.0))
+        est = config.estimated_overlap
+        iou_safe = torch.clamp(iou, min=1e-9)
+        step = config.weight_adjustment_step
+        ratio = config.weight_adjustment_ratio
+        delta = torch.where(est / iou_safe > ratio, step,
+                            torch.where(iou_safe / est > ratio, -step, 0.0))
+        # metrics of the active pairs, at each one's own iteration
+        m = st.metrics
+        pa = torch.from_numpy(np.nonzero(active)[0]).to(dev)
+        ia = torch.from_numpy(st.it[active]).to(dev)
+        for buf, val in ((m.energy, ares.energy), (m.rmse, rmse),
+                         (m.rmse_after, rmse_after),
+                         (m.cor, cor.to(torch.int64)), (m.iou, iou),
+                         (m.penalty, penalty),
+                         (m.rounds, ares.rounds.to(dev))):
+            buf[pa, ia] = val[pa].to(buf.dtype)
+        flags = torch.stack([cor < config.min_cor, small]).cpu().numpy()
+        converged = st.converged | (active & (flags[0] | flags[1]))
+        max_disp = torch.where(mask_s, torch.linalg.norm(kps_new - st.kps,
+                                                         dim=-1),
+                               0.0).amax(dim=-1)
+        d_ed = scale * max_disp
+        i_eff = st.it + st.it_shift
+        dwfd = torch.tensor([math.exp(-i / r) - math.exp(-(i + 1.0) / r)
+                             for i in i_eff], dtype=torch.float32,
+                            device=dev)
+        drift_next = d_ed + dwfd * (ed_max + d_ed)
+        new = dict(kps=kps_new, rt=tf.compose(rt_step, st.rt), rms=rmse,
+                   fdm=fdm, fdstd=fdstd, para1=st.para1 + delta,
+                   para2=st.para2 + delta,
+                   matches=torch.where(w > 0, tgt_idx, -1),
+                   rmse_after=rmse_after, prices=ares.prices,
+                   acol=ares.acol, price_unc=ares.punc + drift_next[:, None],
+                   pen_prev=penalty)
+        act = torch.from_numpy(active).to(dev)
+        return st._replace(
+            **{k: torch.where(act.reshape((P,) + (1,) * (v.ndim - 1)), v,
+                              getattr(st, k)) for k, v in new.items()},
+            it=st.it + active, converged=converged)
+
+    return body
+
+
 def final_resolve(state: _State, kp_t, mask_s, mask_t, fd,
                   bbx_magnitude: float, config: GHICPConfig,
                   stream: Optional[StreamFeatures] = None):
@@ -473,8 +656,11 @@ def final_resolve(state: _State, kp_t, mask_s, mask_t, fd,
                              eps_final=config.km_eps,
                              max_rounds=config.final_resolve_rounds,
                              rel_eps=0.0, p0=state.prices,
-                             price_uncertainty=state.price_unc, n_phases=1,
-                             acol0=state.acol, keep_slack_extra=0.0)
+                             price_uncertainty=state.price_unc,
+                             quantize_bf16=config.auction_bf16,
+                             use_round_kernel=config.auction_round_kernel,
+                             n_phases=1, acol0=state.acol,
+                             keep_slack_extra=0.0)
         tgt_idx, w = ares.match.tgt_idx, ares.match.w
     rows = torch.arange(S, device=dev)
     own = torch.full((T + 1,), -1, dtype=torch.int64, device=dev)
@@ -487,21 +673,21 @@ def final_resolve(state: _State, kp_t, mask_s, mask_t, fd,
     return matches, int(w1.sum()), torch.sqrt(se / n)
 
 
-def ghicp_register_chunked(kp_s, mask_s, kp_t, mask_t, fd,
-                           bbx_magnitude: float, config: GHICPConfig,
-                           init_transform=None, it_shift: float = 0.0,
-                           device=None, iteration_callback=None,
-                           stream: Optional[StreamFeatures] = None
-                           ) -> GHICPResult:
-    """Run the GH-ICP loop to convergence (or ``max_iterations``), then
-    the one-to-one final matching.  Inputs are moved to ``device`` (the
-    card by default).  ``stream`` (packed BSC factors, ``fd`` None)
-    selects the streaming lane.  ``iteration_callback(it, kps, matches)``
-    gets host numpy copies after every iteration."""
+def _on_device(dev, kp_s, mask_s, kp_t, mask_t):
+    """Keypoints (float32) and masks (bool) on ``dev``."""
+    to = lambda x, dt: torch.as_tensor(x).to(dev, dt)
+    return (to(kp_s, torch.float32), to(mask_s, torch.bool),
+            to(kp_t, torch.float32), to(mask_t, torch.bool))
+
+
+def _loop(kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude, config,
+          init_transform, it_shift, device, iteration_callback, stream):
+    """Inputs on ``device`` and the GH-ICP loop run to convergence (or
+    ``max_iterations``).  Returns (state, kp_t, mask_s, mask_t, fd, bbx,
+    stream) on the device."""
     dev = resolve_device(device)
     to = lambda x: torch.as_tensor(x).to(dev)
-    kp_s, kp_t = to(kp_s).to(torch.float32), to(kp_t).to(torch.float32)
-    mask_s, mask_t = to(mask_s).to(torch.bool), to(mask_t).to(torch.bool)
+    kp_s, mask_s, kp_t, mask_t = _on_device(dev, kp_s, mask_s, kp_t, mask_t)
     if stream is not None:
         fd = None
         stream = StreamFeatures(*(to(x) for x in stream))
@@ -516,14 +702,85 @@ def ghicp_register_chunked(kp_s, mask_s, kp_t, mask_t, fd,
         if iteration_callback is not None:
             iteration_callback(state.it, state.kps.cpu().numpy(),
                                state.matches.cpu().numpy())
+    return state, kp_t, mask_s, mask_t, fd, bbx, stream
+
+
+def _result(state: _State, final_rmse, matches, config: GHICPConfig):
+    return GHICPResult(transform=state.rt, iterations=state.it,
+                       converged=state.converged,
+                       success=final_rmse < 1.5 * config.non_max_radius,
+                       final_rmse=final_rmse, metrics=state.metrics,
+                       matches=matches)
+
+
+def ghicp_register(kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude: float,
+                   config: GHICPConfig, init_transform=None,
+                   it_shift: float = 0.0, device=None,
+                   iteration_callback=None,
+                   stream: Optional[StreamFeatures] = None) -> GHICPResult:
+    """Run the GH-ICP loop to convergence (or ``max_iterations``) with no
+    final matching: the success verdict reads the last iteration's matched
+    RMSE, ``matches`` is the last iteration's.  Arguments as
+    :func:`ghicp_register_chunked`."""
+    state = _loop(kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude, config,
+                  init_transform, it_shift, device, iteration_callback,
+                  stream)[0]
+    return _result(state, float(state.rmse_after), state.matches, config)
+
+
+def ghicp_register_chunked(kp_s, mask_s, kp_t, mask_t, fd,
+                           bbx_magnitude: float, config: GHICPConfig,
+                           init_transform=None, it_shift: float = 0.0,
+                           device=None, iteration_callback=None,
+                           stream: Optional[StreamFeatures] = None
+                           ) -> GHICPResult:
+    """Run the GH-ICP loop to convergence (or ``max_iterations``), then
+    the one-to-one final matching.  Inputs are moved to ``device`` (the
+    card by default).  ``stream`` (packed BSC factors, ``fd`` None)
+    selects the streaming lane.  ``iteration_callback(it, kps, matches)``
+    gets host numpy copies after every iteration."""
+    state, kp_t, mask_s, mask_t, fd, bbx, stream = _loop(
+        kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude, config,
+        init_transform, it_shift, device, iteration_callback, stream)
     matches = state.matches
     final_rmse = float(state.rmse_after)
     if config.final_resolve_rounds > 0:
         matches, _, rmse = final_resolve(state, kp_t, mask_s, mask_t, fd, bbx,
                                          config, stream)
         final_rmse = float(rmse)
-    return GHICPResult(transform=state.rt, iterations=state.it,
-                       converged=state.converged,
-                       success=final_rmse < 1.5 * config.non_max_radius,
-                       final_rmse=final_rmse, metrics=state.metrics,
-                       matches=matches)
+    return _result(state, final_rmse, matches, config)
+
+
+def ghicp_register_batched(kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude,
+                           config: GHICPConfig, init_transform=None,
+                           it_shift: float = 0.0, device=None
+                           ) -> GHICPResult:
+    """One engine over P pairs on a leading axis: kp_s [P, S, 3], mask_s
+    [P, S], kp_t [P, T, 3], mask_t [P, T], fd [P, S, T], bbx_magnitude
+    [P], ``init_transform`` [P, 4, 4] (optional, with the shared schedule
+    offset ``it_shift``).  Both kernel flags are forced off, as in the JAX
+    package: every pair runs the XLA lane (its auction bids through K6).
+    Each iteration runs the body for every pair still going; a pair that
+    has converged or reached ``max_iterations`` keeps its state.  No final
+    matching.  Returns a :class:`GHICPResult` of [P] tensors."""
+    cfg = dataclasses.replace(config, fused_cost_kernel=False,
+                              auction_round_kernel=False)
+    dev = resolve_device(device)
+    to = lambda x: torch.as_tensor(x).to(dev)
+    kp_s, mask_s, kp_t, mask_t = _on_device(dev, kp_s, mask_s, kp_t, mask_t)
+    _check_lane(cfg, kp_s.shape[1], kp_t.shape[1], False, False)
+    T0 = None if init_transform is None else to(init_transform)
+    bbx = [float(x) for x in torch.as_tensor(bbx_magnitude).reshape(-1)]
+    state = initial_state(kp_s, kp_t.shape[1], cfg, T0, it_shift)
+    body = make_batched_body(kp_t, mask_s, mask_t, to(fd), bbx, cfg)
+    while True:
+        active = ~state.converged & (state.it < cfg.max_iterations)
+        if not active.any():
+            break
+        state = body(state, active)
+    return GHICPResult(
+        transform=state.rt, iterations=torch.from_numpy(state.it),
+        converged=torch.from_numpy(state.converged),
+        success=state.rmse_after < 1.5 * cfg.non_max_radius,
+        final_rmse=state.rmse_after, metrics=state.metrics,
+        matches=state.matches)

@@ -34,18 +34,22 @@ def test_compare_phase_at_small_size(monkeypatch):
     monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(chip_smoke, "REPS", 1)
-    rows = chip_smoke.compare_kernels(torch, seed=7, size=512, device="cpu",
-                                      stream_rows=512, stream_cols=384,
-                                      compact_rows=128)
+    rows = chip_smoke.compare_kernels(
+        torch, seed=7, size=512, device="cpu", stream_rows=512,
+        stream_cols=384, compact_rows=128,
+        top2_shapes=((2, 128, 256, "bfloat16"), (1, 64, 96, "float32")))
     assert [r["name"] for r in rows] == ["fused_benefit", "auction_phase_gs",
                                          "auction_warm_fused", "nms_exact",
-                                         "stream_sweep"]
+                                         "stream_sweep", "top2_rows"]
     for r in rows:
         assert r["max_abs_err"] == 0.0
         assert r["bound_ms"] > 0
         assert r["bound_by"] == ("operations" if r["name"] in (
             "nms_exact", "stream_sweep") else "bytes")
-        assert r["library_ms"] is None
+        if r["name"] == "top2_rows":
+            assert r["library_ms"] > 0
+        else:
+            assert r["library_ms"] is None
 
 
 def test_close_pairs_counts_each_pair_once():

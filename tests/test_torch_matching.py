@@ -48,7 +48,8 @@ def test_auction_match_benefits_energy(n_phases):
     M = tau.auction_match_benefits(
         torch.tensor(np.asarray(bb.astype(jnp.float32))).to(torch.bfloat16),
         penalty,
-        T(ms), T(mt), eps_final=eps, max_rounds=200, n_phases=n_phases)
+        T(ms), T(mt), eps_final=eps, max_rounds=200, use_round_kernel=True,
+        n_phases=n_phases)
     tol = max(S, C) * max(float(J.eps_used), float(M.eps_used))
     assert abs(float(J.energy) - float(M.energy)) <= tol
     m = M.match.tgt_idx.numpy()[M.match.w.numpy() > 0]
@@ -64,7 +65,8 @@ def test_auction_match_energy(warm):
     if warm:
         # warm start from a cold solve's prices and assignment
         cold = tau.auction_match(T(cd), penalty, T(ms), T(mt), eps_final=eps,
-                                 max_rounds=200, n_phases=1)
+                                 max_rounds=200, quantize_bf16=True,
+                                 use_round_kernel=True, n_phases=1)
         p0, acol0 = cold.prices.numpy(), cold.acol.numpy()
         unc = np.full(C, 0.2, np.float32)
         kw_j = dict(p0=jnp.asarray(p0), price_uncertainty=jnp.asarray(unc),
@@ -78,7 +80,8 @@ def test_auction_match_energy(warm):
                        quantize_bf16=True, use_round_kernel=True, n_phases=1,
                        **kw_j)
     M = tau.auction_match(T(cd), penalty, T(ms), T(mt), eps_final=eps,
-                          max_rounds=200, n_phases=1, **kw_m)
+                          max_rounds=200, quantize_bf16=True,
+                          use_round_kernel=True, n_phases=1, **kw_m)
     tol = max(S, C) * max(float(J.eps_used), float(M.eps_used))
     assert abs(float(J.energy) - float(M.energy)) <= tol
     assert int(J.match.n_matches) > S // 2
