@@ -8,7 +8,9 @@
 //     (_warm_fused_kernel): one warm engine iteration — sweep 0 over benefits
 //     rebuilt from the FD stripe and the keypoint coordinates, the eps-CS
 //     keep test, a Jacobi round 0 from the parked hints, Gauss-Seidel sweeps
-//     and greedy completion                                 -> warm_fused().
+//     and greedy completion                                 -> warm_fused();
+//     with ``mult`` the FPFH/RoPS cost ED * expf(-k * logf(max(FD, 1e-6)))
+//     (k in the wfd slot) instead of the BSC blend W_ED * ED + W_FD * FD.
 //
 // Bound on this card: memory.  A full sweep reads the [S, C] bf16 matrix
 // once (134 MB at 8192^2, 40 us at 3.35 TB/s); later sweeps read only the
@@ -35,7 +37,8 @@
 //            applied here too, so no open flag changes while another block
 //            may still be building the active list.
 // Everything that must match the plain PyTorch version bit for bit is
-// computed with explicitly rounded intrinsics (no FMA contraction), and the
+// computed with explicitly rounded intrinsics (no FMA contraction; expf and
+// logf, as PyTorch's exp and log on the card, never __expf / __logf), and the
 // escalation schedule comes in as a precomputed table, so kernel and plain
 // version read the same epsilon values.
 //
@@ -65,6 +68,7 @@ struct Params {
   const int* ms;
   const int* mt;
   float wed, wfd, scale;
+  int mult;                       // FPFH/RoPS blend (wed unused)
   float eps_abs, rel_eps, dpen;
   const float* p0;
   const int* acol0;
@@ -154,7 +158,9 @@ __device__ __forceinline__ float factor_benefit(const Params& P, float4 s,
                       __fmul_rn(s.z, t.z));
   float d2 = fmaxf(__fsub_rn(__fadd_rn(s.w, t.w), __fmul_rn(2.0f, d)), 0.0f);
   float ed = __fmul_rn(P.scale, __fsqrt_rn(d2));
-  float cd = __fadd_rn(__fmul_rn(P.wed, ed), __fmul_rn(P.wfd, fdv));
+  float cd = P.mult
+      ? __fmul_rn(ed, expf(__fmul_rn(-P.wfd, logf(fmaxf(fdv, 1e-6f)))))
+      : __fadd_rn(__fmul_rn(P.wed, ed), __fmul_rn(P.wfd, fdv));
   return (msr != 0 && __ldg(P.mt + c) != 0) ? -cd : NEG_F;
 }
 
@@ -462,7 +468,8 @@ extern "C" int warm_fused(const void* fd, const void* kps, const void* kpt,
                           const int* ms, const int* mt, const float* p0,
                           const int* acol0, const int* sunk0,
                           const int* ownok, const float* sched, float wed,
-                          float wfd, float scale, float sink, float eps_abs,
+                          float wfd, float scale, int mult, float sink,
+                          float eps_abs,
                           float rel_eps, float dpen, int max_rounds,
                           int S, int C, int ts,
                           float* p, int* owner, int* sunk, int* open,
@@ -486,6 +493,7 @@ extern "C" int warm_fused(const void* fd, const void* kps, const void* kpt,
   P.wed = wed;
   P.wfd = wfd;
   P.scale = scale;
+  P.mult = mult;
   P.eps_abs = eps_abs;
   P.rel_eps = rel_eps;
   P.dpen = dpen;

@@ -30,8 +30,8 @@ import torch
 
 from ghicp_tpu_torch.core.config import GHICPConfig
 from ghicp_tpu_torch.core.types import PointCloud
+from ghicp_tpu_torch.ops.eigh3 import eigh3
 from ghicp_tpu_torch.preprocess.neighbors import radius_neighbors
-from ghicp_tpu_torch.preprocess.pca import eigh_desc
 
 KP_CHUNK = 1024     # keypoints per grid-accumulation batch
 
@@ -89,7 +89,7 @@ def local_frames(nxyz, nvalid, kp, r: float) -> torch.Tensor:
     wsum = w.sum(dim=1)
     cov = torch.einsum("sk,ski,skj->sij", w, d, d) / torch.where(
         torch.abs(wsum) > 1e-12, wsum, 1.0)[:, None, None]
-    _, vecs = eigh_desc(cov)
+    _, vecs = eigh3(cov)
 
     def canon(v):
         i = torch.argmax(torch.abs(v), dim=1, keepdim=True)

@@ -18,7 +18,8 @@ from ghicp_tpu_torch.core.config import (CorrespondenceType, FeatureType,
                                          GHICPConfig)
 from ghicp_tpu_torch.features.bsc import pack_bits
 from ghicp_tpu_torch.matching.stream_auction import StreamCarry, carry_init
-from ghicp_tpu_torch.ops.stream_kernel import StreamFeatures, to_words
+from ghicp_tpu_torch.ops.stream_kernel import (DescFeatures, StreamFeatures,
+                                               to_words)
 from ghicp_tpu_torch.registration.ghicp import IterationMetrics, _State
 
 _ENUMS = {"feature": FeatureType, "correspondence": CorrespondenceType}
@@ -60,6 +61,19 @@ def stream_features_from_numpy(fs, ft, na, nb, n_bits: int = 441,
         words_t=to_words(pack_bits(bits(ft))).contiguous(),
         na=torch.tensor(np.asarray(na, np.float32), device=device),
         nb=torch.tensor(np.asarray(nb, np.float32), device=device))
+
+
+def desc_features_from_numpy(fs, ft, dim: int, device="cpu") -> DescFeatures:
+    """The port's similarity-lane factors from the JAX descriptor
+    ``StreamFeatures`` fields as numpy arrays: standardized bf16 rows
+    ``fs`` [1, S, F] (or [S, F]) and ``ft`` [C, F], ``dim`` the descriptor
+    length D.  The values pass through float32, which holds every bf16
+    value exactly."""
+    rows = lambda x: torch.tensor(np.asarray(x, np.float32),
+                                  device=device).to(torch.bfloat16)
+    fs = rows(fs)
+    return DescFeatures(fs=fs.reshape(-1, fs.shape[-1]).contiguous(),
+                        ft=rows(ft).contiguous(), dim=int(dim))
 
 
 def state_from_numpy(arrays: Mapping, device, max_iterations: int = 100

@@ -1,13 +1,17 @@
-"""Cost-matrix pieces shared by the engine: ED and the BSC blend.
+"""Cost-matrix pieces shared by the engine: ED and the two blends.
 
 * ``euclidean_matrix`` — ED[i, j] = scale * ||s_i - t_j|| by the norm
   expansion, with the cross term as explicit float32 products (no
   reduced-precision matrix unit);
 * ``blend_bsc`` — CD = W_ED * ED + W_FD * FD, W_FD = exp(-iter / rate),
-  with the penalty schedule of :func:`bsc_penalty`.
+  with the penalty schedule of :func:`bsc_penalty`;
+* ``blend_fpfh`` — FPFH/RoPS: CD = ED / max(FD, 1e-6)^k, k = 1 / (iter +
+  1), FD a similarity, with the schedule of :func:`mult_penalty` (the
+  kernels write the same cost as ED * exp(-k log(.)), the JAX package's
+  kernel form; this XLA-lane form keeps its ``power``).
 
-Masked pairs carry CD = +inf; statistics run over valid pairs only.  Both
-take an optional leading pair axis ([P, S, 3] keypoints, [P, S, T]
+Masked pairs carry CD = +inf; statistics run over valid pairs only.  All
+three take an optional leading pair axis ([P, S, 3] keypoints, [P, S, T]
 matrices) and then compute their statistics per pair.
 """
 from __future__ import annotations
@@ -85,5 +89,30 @@ def blend_bsc(ed, fd, mask_s, mask_t, iteration, rms, fdm, fdstd, para1,
     mean, std = _masked_stats(cd, m)
     penalty = bsc_penalty(mean, std, it, rms, fdm, fdstd, para1,
                           para2, scale, wed, wfd, penalty_initial)
+    return CostResult(cd=cd.masked_fill_(~m, torch.inf), penalty=penalty,
+                      cd_mean=mean, cd_std=std)
+
+
+def mult_penalty(mean, iteration, rms, para1, para2, scale,
+                 penalty_initial: float):
+    """FPFH/RoPS penalty schedule: CD mean / ``penalty_initial`` on
+    iterations 0-1, then RMS * para1 * scale * para2 (no floor)."""
+    pen_late = rms * para1 * scale * para2
+    pen_early = mean / penalty_initial
+    return torch.where(torch.as_tensor(iteration > 1), pen_late, pen_early)
+
+
+def blend_fpfh(ed, fd_sim, mask_s, mask_t, iteration, rms, para1, para2,
+               scale, penalty_initial: float) -> CostResult:
+    """FPFH/RoPS cost CD = ED / max(FD, 1e-6)^k, k = 1 / (iteration + 1),
+    with FD a similarity in [0, 1], and its penalty schedule.  With a pair
+    axis, ``iteration`` and the state scalars are [P] tensors."""
+    m = mask_s[..., :, None] & mask_t[..., None, :]
+    it = torch.as_tensor(iteration, dtype=torch.float32, device=ed.device)
+    k = 1.0 / (it + 1.0)
+    cd = ed / torch.pow(torch.clamp(fd_sim, min=1e-6), k[..., None, None])
+    mean, std = _masked_stats(cd, m)
+    penalty = mult_penalty(mean, it, rms, para1, para2, scale,
+                           penalty_initial)
     return CostResult(cd=cd.masked_fill_(~m, torch.inf), penalty=penalty,
                       cd_mean=mean, cd_std=std)

@@ -3,7 +3,8 @@
 Every kernel wrapper launches its kernel for CUDA tensors and runs the
 plain version for CPU tensors only.  Each launch adds one to the kernel's
 count in :data:`LAUNCHES`, so a run can show which kernels its path went
-through.
+through; the FPFH/RoPS (multiplicative-blend) variants of K1, K3 and K5
+count under their own ``*_mult`` names.
 """
 from __future__ import annotations
 
@@ -11,7 +12,10 @@ import torch
 
 LAUNCHES: dict[str, int] = {"fused_benefit": 0, "auction_phase_gs": 0,
                             "auction_warm_fused": 0, "nms_exact": 0,
-                            "stream_sweep": 0, "top2_rows": 0}
+                            "stream_sweep": 0, "top2_rows": 0,
+                            "fused_benefit_mult": 0,
+                            "auction_warm_fused_mult": 0,
+                            "stream_sweep_mult": 0}
 
 
 def count_launch(name: str) -> None:

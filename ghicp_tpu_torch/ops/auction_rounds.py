@@ -5,7 +5,8 @@ PyTorch versions.
 K2 replaces ``ghicp_tpu/ops/auction_rounds.py::auction_phase_gs_pallas``
 (Pallas ``_gs_kernel``); K3 replaces
 ``ghicp_tpu/ops/auction_rounds.py::auction_warm_fused_pallas`` (Pallas
-``_warm_fused_kernel``).  Both are bound by memory on this card: a full
+``_warm_fused_kernel``), with its ``mult_blend`` branch (the FPFH/RoPS cost
+ED * exp(-k log(max(FD, 1e-6))) in the benefit tile).  Both are bound by memory on this card: a full
 sweep reads the bf16 [S, C] matrix once (134 MB at 8192^2) and later sweeps
 only the row tiles with open rows.  The design notes (one cooperative
 persistent launch, 64-bit atomicMax bid resolution with the lowest-row tie
@@ -143,17 +144,18 @@ def auction_phase_gs_plain(b, p0, owner0, sunk0, open0, eps, sink,
     return p, owner, sunk, r, gcol
 
 
-def factor_benefits(ks, kt, fd, mask_s, mask_t, wed, wfd, scale):
+def factor_benefits(ks, kt, fd, mask_s, mask_t, wed, wfd, scale,
+                    mult_blend: bool = False):
     """[S, C] float32 benefits rebuilt from FD and the (x, y, z, |x|^2)
     factor rows, in the same operation order as the CUDA kernel."""
-    _, cd = factor_cost(ks, kt, fd, wed, wfd, scale)
+    _, cd = factor_cost(ks, kt, fd, wed, wfd, scale, mult_blend)
     return torch.where(mask_s[:, None] & mask_t[None, :], -cd, NEG)
 
 
 def auction_warm_fused_plain(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd,
                              scale, p0, owner0, acol0, sunk0, own_ok, sink,
                              eps_abs, rel_eps, dpen, max_rounds: int,
-                             ts: int, sched=None):
+                             ts: int, sched=None, mult_blend: bool = False):
     """Plain PyTorch version of K3: sweep 0, keep test + round 0, GS
     sweeps on the rebuilt benefits, greedy completion from the hints."""
     S, C = fd.shape
@@ -164,7 +166,7 @@ def auction_warm_fused_plain(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd,
     if sched is None:
         sched = escalation_schedule(max_rounds, 0, 1)
     bt = factor_benefits(_factors(kp_s), _factors(kp_t), fd, mask_s, mask_t,
-                         wed, wfd, scale)
+                         wed, wfd, scale, mult_blend)
     p0 = p0.to(torch.float32)
     # ---- sweep 0 ----
     v = bt - p0[None, :]
@@ -241,8 +243,8 @@ def _lib():
         lib.gs_phase.argtypes = ([_VP] * 8 + [_F, _F] + [_I] * 5
                                  + [_VP] * 3)
         lib.gs_phase.restype = _I
-        lib.warm_fused.argtypes = ([_VP] * 10 + [_F] * 7 + [_I] * 4
-                                   + [_VP] * 16)
+        lib.warm_fused.argtypes = ([_VP] * 10 + [_F] * 3 + [_I]
+                                   + [_F] * 4 + [_I] * 4 + [_VP] * 16)
         lib.warm_fused.restype = _I
         lib._typed = True
     return lib
@@ -306,7 +308,7 @@ def auction_phase_gs(b, p0, owner0, sunk0, open0, eps, sink, max_rounds: int,
 def auction_warm_fused_cuda(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
                             p0, owner0, acol0, sunk0, own_ok, sink, eps_abs,
                             rel_eps, dpen, max_rounds: int, ts: int,
-                            sched=None):
+                            sched=None, mult_blend: bool = False):
     """Launch K3 on the card (bf16 FD)."""
     from ghicp_tpu_torch.ops._build import check, ptr
     S, C = fd.shape
@@ -350,29 +352,33 @@ def auction_warm_fused_cuda(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
     rc = _lib().warm_fused(
         ptr(fd), ptr(ks), ptr(kt), ptr(ms), ptr(mt), ptr(p0), ptr(acol0),
         ptr(sunk0), ptr(own_ok), ptr(sched), _f32(wed), _f32(wfd),
-        _f32(scale), _f32(sink), _f32(eps_abs), _f32(rel_eps), _f32(dpen),
+        _f32(scale), int(bool(mult_blend)), _f32(sink), _f32(eps_abs),
+        _f32(rel_eps), _f32(dpen),
         int(max_rounds), S, C, ts,
         ptr(p), ptr(owner), ptr(sunk), ptr(open_), ptr(gcol), ptr(rounds),
         ptr(stats), ptr(bid), ptr(rowdec), ptr(vic), ptr(hv1), ptr(hj1),
         ptr(hv2), ptr(hvsel), ptr(bmax), _VP(stream))
     check(rc, "auction_warm_fused launch")
-    count_launch("auction_warm_fused")
+    count_launch("auction_warm_fused_mult" if mult_blend
+                 else "auction_warm_fused")
     return p, owner, sunk, rounds[0], gcol, stats
 
 
 def auction_warm_fused(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale, p0,
                        owner0, acol0, sunk0, own_ok, sink, eps_abs, rel_eps,
                        dpen, max_rounds: int, ts: int = 128,
-                       esc_after: int = 1, esc_period: int = 1):
+                       esc_after: int = 1, esc_period: int = 1,
+                       mult_blend: bool = False):
     """Single-launch warm engine iteration.  ``p0`` [C] bidding-start
     prices; ``owner0`` [C] row id or -1; ``acol0`` [S] previous real column
     or -1; ``sunk0`` [S] (1 = previously sunk); ``own_ok`` [S] (row still
     owns its acol0 column).  Returns (p, owner, sunk, rounds, gcol,
-    stats [b_max, 0, eps, eps_keep]); ``rounds`` counts round 0 too."""
+    stats [b_max, 0, eps, eps_keep]); ``rounds`` counts round 0 too.
+    ``mult_blend``: the FPFH/RoPS cost, k in the ``wfd`` slot."""
     sched = escalation_schedule(max_rounds, esc_after, esc_period)
     args = (kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale, p0, owner0,
             acol0, sunk0, own_ok, sink, eps_abs, rel_eps, dpen,
-            int(max_rounds), ts, sched)
+            int(max_rounds), ts, sched, mult_blend)
     if require_device(fd, "auction_warm_fused") == "cuda":
         return auction_warm_fused_cuda(*args)
     return auction_warm_fused_plain(*args)

@@ -5,6 +5,8 @@ Replaces the TPU kernel ``ghicp_tpu/ops/cost_kernel.py::fused_benefit``
 
   ED = scale * sqrt(|s|^2 + |t|^2 - 2 s.t)            (norm expansion)
   CD = W_ED * ED + W_FD * FD                           (additive BSC blend)
+     or ED * exp(-k * log(max(FD, 1e-6)))              (``mult_blend``: the
+        FPFH/RoPS lane, FD a similarity, k passed as W_FD, W_ED unused)
   b  = -CD at valid pairs, -3e38 elsewhere             (written bf16)
 
 and, from the float32 benefits, the warm-start hints v1 = rowmax(b - p)
@@ -18,7 +20,9 @@ walks the columns in blocks with running row maxima, so FD is read once
 and b written once; the cross term is three float32 products (no tensor
 cores: the JAX package computes it at HIGHEST precision), and floating-
 point fusion is off so the result matches the plain version bit for bit.
-Each program writes its statistics to a small [programs, 8] buffer that
+The multiplicative blend takes libdevice's ``expf`` / ``logf`` (what
+PyTorch's ``exp`` / ``log`` call on the card), not ``tl.exp`` / ``tl.log``,
+which lower to the approximate ``ex2`` / ``lg2``.  Each program writes its statistics to a small [programs, 8] buffer that
 the wrapper reduces.
 """
 from __future__ import annotations
@@ -48,22 +52,32 @@ def _factors(kp: torch.Tensor) -> torch.Tensor:
     return torch.cat([kp, sq_norm3(kp)[:, None]], dim=1).contiguous()
 
 
-def factor_cost(ks, kt, fd, wed, wfd, scale):
+def mult_cost(ed, sim, wfd):
+    """The FPFH/RoPS blend ED / max(sim, 1e-6)^k as ED * exp(-k log(.)),
+    the kernels' form (k = ``wfd``, a float32 tensor or float)."""
+    return ed * torch.exp(-wfd * torch.log(torch.clamp(sim, min=1e-6)))
+
+
+def factor_cost(ks, kt, fd, wed, wfd, scale, mult_blend: bool = False):
     """(ED, CD) [S, C] float32 from the (x, y, z, |x|^2) factor rows and FD,
     in the kernels' operation order."""
     f = lambda x: torch.tensor(_f32(x), dtype=torch.float32, device=fd.device)
     d2 = torch.clamp((ks[:, 3:4] + kt[None, :, 3]) - 2.0 * cross3(ks, kt),
                      min=0.0)
     ed = f(scale) * torch.sqrt(d2)
+    if mult_blend:
+        return ed, mult_cost(ed, fd.to(torch.float32), f(wfd))
     return ed, f(wed) * ed + f(wfd) * fd.to(torch.float32)
 
 
 def fused_benefit_plain(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
-                        p_defl, acol0, with_stats: bool = True):
+                        p_defl, acol0, with_stats: bool = True,
+                        mult_blend: bool = False):
     """Plain PyTorch version of K1 (same operation order as the kernel)."""
     S, C = fd.shape
     dev = fd.device
-    ed, cd = factor_cost(_factors(kp_s), _factors(kp_t), fd, wed, wfd, scale)
+    ed, cd = factor_cost(_factors(kp_s), _factors(kp_t), fd, wed, wfd, scale,
+                         mult_blend)
     m = mask_s[:, None] & mask_t[None, :]
     bf = torch.where(m, -cd, NEG)
     v = bf - p_defl[None, :]
@@ -93,12 +107,16 @@ def _kernel():
     triton_cache()
     import triton
     import triton.language as tl
+    try:
+        from triton.language.extra import libdevice
+    except ImportError:
+        from triton.language.extra.cuda import libdevice
 
     @triton.jit
     def fused_benefit_kernel(kps_ptr, kpt_ptr, fd_ptr, ms_ptr, mt_ptr, p_ptr,
                              ac_ptr, b_ptr, v1_ptr, vsel_ptr, part_ptr,
                              S, C, wed, wfd, scale,
-                             WITH_STATS: tl.constexpr,
+                             WITH_STATS: tl.constexpr, MULT: tl.constexpr,
                              BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
         pid = tl.program_id(0)
         rows = pid * BLOCK_S + tl.arange(0, BLOCK_S)
@@ -133,7 +151,11 @@ def _kernel():
                  + sz[:, None] * tz[None, :])
             d2 = tl.maximum((s2[:, None] + t2[None, :]) - 2.0 * d, 0.0)
             ed = scale * tl.sqrt_rn(d2)
-            cd = wed * ed + wfd * fdv
+            if MULT:
+                cd = ed * libdevice.exp(
+                    -wfd * libdevice.log(tl.maximum(fdv, 1e-6)))
+            else:
+                cd = wed * ed + wfd * fdv
             m = ms[:, None] & mt[None, :] & m2
             b = tl.where(m, -cd, -3.0e38)
             tl.store(b_ptr + off, b.to(tl.bfloat16), mask=m2)
@@ -164,7 +186,8 @@ def _kernel():
 
 
 def fused_benefit_cuda(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
-                       p_defl, acol0, with_stats: bool = True):
+                       p_defl, acol0, with_stats: bool = True,
+                       mult_blend: bool = False):
     """Launch K1 on the card (bf16 FD in, bf16 b out)."""
     S, C = fd.shape
     if fd.dtype != torch.bfloat16:
@@ -185,9 +208,10 @@ def fused_benefit_cuda(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
                     as_rows(p_defl, C, 0, f32, dev, "p_defl"),
                     as_rows(acol0, S, 0, i32, dev, "acol0"), b, v1, vsel, part,
                     S, C, _f32(wed), _f32(wfd), _f32(scale),
-                    WITH_STATS=bool(with_stats), BLOCK_S=BLOCK_S,
+                    WITH_STATS=bool(with_stats), MULT=bool(mult_blend),
+                    BLOCK_S=BLOCK_S,
                     BLOCK_C=BLOCK_C, num_warps=8, enable_fp_fusion=False)
-    count_launch("fused_benefit")
+    count_launch("fused_benefit_mult" if mult_blend else "fused_benefit")
     tot = part.to(torch.float64).sum(dim=0).to(torch.float32)
     mx = part.amax(dim=0)
     return (b, tot[0], tot[1], tot[2], mx[3], mx[4], mx[5], v1, vsel)
@@ -196,14 +220,16 @@ def fused_benefit_cuda(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
 def fused_benefit(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
                   p_defl: Optional[torch.Tensor] = None,
                   acol0: Optional[torch.Tensor] = None,
-                  with_stats: bool = True):
+                  with_stats: bool = True, mult_blend: bool = False):
     """One-sweep benefit matrix + CD statistics + warm-start hints.
 
     kp_s [S, 3], kp_t [C, 3] float32 (centred by a common offset first);
     fd [S, C]; masks bool; ``p_defl`` [C] prices and ``acol0`` [S] previous
     assignment feed v1/vsel.  Returns (b [S, C] bf16, cd_count, cd_sum,
-    cd_sumsq, cd_max, ed_max, b_max, v1 [S], vsel [S]).  CUDA tensors run
-    the Triton kernel, CPU tensors the plain version.
+    cd_sumsq, cd_max, ed_max, b_max, v1 [S], vsel [S]).  ``mult_blend``
+    takes the FPFH/RoPS cost ED / max(FD, 1e-6)^k with k in the ``wfd``
+    slot.  CUDA tensors run the Triton kernel, CPU tensors the plain
+    version.
     """
     S, C = fd.shape
     dev = fd.device
@@ -213,6 +239,7 @@ def fused_benefit(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
         acol0 = torch.full((S,), -1, dtype=torch.int32, device=dev)
     if require_device(fd, "fused_benefit") == "cuda":
         return fused_benefit_cuda(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd,
-                                  scale, p_defl, acol0, with_stats)
+                                  scale, p_defl, acol0, with_stats,
+                                  mult_blend)
     return fused_benefit_plain(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd,
-                               scale, p_defl, acol0, with_stats)
+                               scale, p_defl, acol0, with_stats, mult_blend)

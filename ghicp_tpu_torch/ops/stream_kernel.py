@@ -2,12 +2,16 @@
 ``csrc/stream.cu``, with its plain PyTorch version.
 
 Replaces ``ghicp_tpu/ops/stream_kernel.py::stream_sweep`` (Pallas
-``_kernel``) on its Hamming (BSC) lane.  One sweep computes, for every
-source row against every target column, without materializing [S, C]:
+``_kernel``) on its Hamming (BSC) lane and its similarity (FPFH/RoPS,
+``mult_blend``) lane.  One sweep computes, for every source row against
+every target column, without materializing [S, C]:
 
   ED = scale * sqrt(max(|s|^2 + |t|^2 - 2 s.t, 0))   (fixed product order)
-  FD = min over the V source variants of popc(a_v XOR b)
-  CD = W_ED * ED + W_FD * FD;  v = -CD - p[j] at valid pairs
+  BSC:  FD = min over the V source variants of popc(a_v XOR b)
+        CD = W_ED * ED + W_FD * FD
+  FPFH/RoPS: sim = max(|fs_i . ft_j|, 1e-6) over standardized bf16 rows
+        (:class:`DescFeatures`), CD = ED * exp(-k log(sim)), k = W_FD
+  v = -CD - p[j] at valid pairs
 
 and keeps per row the top-2 of v (v1, j1, v2, j2; the lowest column on
 exact ties), v at the previous assignment ``acol`` (vsel), and the
@@ -15,17 +19,23 @@ statistics count, sum CD, sum CD^2, max CD, max ED, max -CD and max FD
 over valid pairs.  The features stay packed: 32 bits a word, ``W`` words a
 row (14 for the 441 BSC bits).  For {0, 1} bits, |a| + |b| - 2 a.b =
 popc(a XOR b) exactly, so the plain version's float32 product of the
-unpacked bits and the kernel's XOR + POPC give the same integers.
+unpacked bits and the kernel's XOR + POPC give the same integers.  On
+the similarity lane a product of two bf16 values is exact in float32, so
+only the order of the sum over the D dimensions matters: both versions
+add them in increasing order, and the plain one never calls a matrix
+product, whose order is its own.
 
-Bound on this card: integer operations, V * W * (XOR + POPC + add) a pair;
-the bytes (coordinates and packed words, read once) are a few MB.  The
-design notes are at the head of the CUDA source.  The multiplicative
-(FPFH/RoPS) blend, the feature-"none" lane and the column-side reduction
-of the NNR matcher are not ported yet: the wrapper raises for them.
+Bound on this card: integer operations on the Hamming lane, V * W * (XOR
++ POPC + add) a pair; float operations on the similarity lane, 2 D a pair
+plus the blend.  The bytes (coordinates and factors, read once) are a few
+MB.  The design notes are at the head of the CUDA source.  The feature-
+"none" lane and the column-side reduction of the NNR matcher are not
+ported yet: the wrapper raises for them.
 
-:func:`stream_selected` (matched-pair gathers) and
+:func:`stream_selected` (matched-pair gathers),
 :func:`stream_feature_candidates` (the RANSAC candidates; a ``lax.scan``
-in the JAX package, not a kernel) are plain PyTorch on either device.
+in the JAX package, not a kernel) and :func:`make_desc_features` are plain
+PyTorch on either device.
 """
 from __future__ import annotations
 
@@ -35,7 +45,8 @@ from typing import NamedTuple
 import torch
 
 from ghicp_tpu_torch.ops import as_rows, count_launch, require_device
-from ghicp_tpu_torch.ops.cost_kernel import _f32, _factors, factor_cost
+from ghicp_tpu_torch.ops.cost_kernel import (_f32, _factors, factor_cost,
+                                             mult_cost)
 
 NEG = -3.0e38
 RT = 128        # rows a block of the kernel (the compaction granule)
@@ -52,6 +63,16 @@ class StreamFeatures(NamedTuple):
     words_t: torch.Tensor   # [C, W] int32 target bits (variant 0)
     na: torch.Tensor        # [V, S] float32 popcounts
     nb: torch.Tensor        # [C] float32 popcounts
+
+
+class DescFeatures(NamedTuple):
+    """Factor rows of the FPFH/RoPS similarity: the standardized
+    descriptors, |fs_i . ft_j| = the similarity matrix."""
+
+    fs: torch.Tensor        # [S, F] bfloat16 source rows (zero past dim)
+    ft: torch.Tensor        # [C, F] bfloat16 target rows
+    dim: int                # D, the descriptor length (F = D rounded up
+                            # to a multiple of 128)
 
 
 class SweepResult(NamedTuple):
@@ -103,8 +124,28 @@ def make_stream_features(packed_s: torch.Tensor,
                           na=na, nb=nb)
 
 
-def subset_rows(feats: StreamFeatures, idx: torch.Tensor) -> StreamFeatures:
+def make_desc_features(desc_s: torch.Tensor, desc_t: torch.Tensor,
+                       standardize: str = "rows") -> DescFeatures:
+    """Factors of the similarity lane from descriptors [S, D] / [T, D]:
+    rows centred and normalised ("rows", Pearson: FPFH), after a
+    per-dimension whitening over both sets ("dims": RoPS), zero-padded to
+    a multiple of 128 columns, in bf16."""
+    from ghicp_tpu_torch.features.fpfh import center_norm
+    from ghicp_tpu_torch.features.rops import whiten_dims
+    D = desc_s.shape[-1]
+    F = -(-D // 128) * 128
+    if standardize == "dims":
+        desc_s, desc_t = whiten_dims(desc_s, desc_t)
+    pad = lambda x: torch.nn.functional.pad(center_norm(x), (0, F - D))
+    return DescFeatures(fs=pad(desc_s).to(torch.bfloat16).contiguous(),
+                        ft=pad(desc_t).to(torch.bfloat16).contiguous(),
+                        dim=D)
+
+
+def subset_rows(feats, idx: torch.Tensor):
     """The source factor rows ``idx`` (targets unchanged)."""
+    if isinstance(feats, DescFeatures):
+        return feats._replace(fs=feats.fs[idx].contiguous())
     return feats._replace(words_s=feats.words_s[:, idx].contiguous(),
                           na=feats.na[:, idx])
 
@@ -117,6 +158,18 @@ def _ham_block(fs_bits, na, ft_bits, nb_blk) -> torch.Tensor:
             fs_bits[v], ft_bits.T)
         fd = h if fd is None else torch.minimum(fd, h)
     return fd
+
+
+def _sim_block(fs, ft_blk, dim: int) -> torch.Tensor:
+    """[S, c] |fs . ft| summed over the first ``dim`` dimensions in
+    increasing order (each bf16 product exact in float32)."""
+    a = fs[:, :dim].to(torch.float32)
+    b = ft_blk[:, :dim].to(torch.float32)
+    acc = torch.zeros((a.shape[0], b.shape[0]), dtype=torch.float32,
+                      device=a.device)
+    for d in range(dim):
+        acc.addcmul_(a[:, d:d + 1], b[None, :, d])
+    return acc.abs_()
 
 
 def _merge_top2(state, v, off: int):
@@ -144,15 +197,16 @@ def _top2_init(S: int, dev):
     return neg, zi, neg.clone(), zi.clone()
 
 
-def stream_sweep_plain(kp_s, kp_t, feats: StreamFeatures, mask_s, mask_t,
-                       prices, acol, wed, wfd, scale,
-                       tc: int = PLAIN_TC) -> SweepResult:
+def stream_sweep_plain(kp_s, kp_t, feats, mask_s, mask_t, prices, acol,
+                       wed, wfd, scale, tc: int = PLAIN_TC) -> SweepResult:
     """Plain PyTorch version of K5: column blocks of ``tc`` (the JAX
-    package's ``stream_sweep_ref``), statistics summed in float64."""
+    package's ``stream_sweep_ref``), statistics summed in float64; the
+    similarity lane when ``feats`` is a :class:`DescFeatures`."""
     S, C = kp_s.shape[0], kp_t.shape[0]
     dev = kp_s.device
     ks, kt = _factors(kp_s), _factors(kp_t)
-    fs = unpack_words(feats.words_s)
+    mult = isinstance(feats, DescFeatures)
+    fs = None if mult else unpack_words(feats.words_s)
     acol = acol.to(torch.int64)
     state = _top2_init(S, dev)
     vsel = torch.full((S,), NEG, dtype=torch.float32, device=dev)
@@ -164,9 +218,14 @@ def stream_sweep_plain(kp_s, kp_t, feats: StreamFeatures, mask_s, mask_t,
     bmax = torch.full((), NEG, dtype=torch.float32, device=dev)
     for off in range(0, C, tc):
         sl = slice(off, min(off + tc, C))
-        fd = _ham_block(fs, feats.na, unpack_words(feats.words_t[sl]),
-                        feats.nb[sl])
-        ed, cd = factor_cost(ks, kt[sl], fd, wed, wfd, scale)
+        if mult:
+            ed, cd = factor_cost(ks, kt[sl], _sim_block(
+                feats.fs, feats.ft[sl], feats.dim), wed, wfd, scale, True)
+            fd = torch.zeros_like(ed)
+        else:
+            fd = _ham_block(fs, feats.na, unpack_words(feats.words_t[sl]),
+                            feats.nb[sl])
+            ed, cd = factor_cost(ks, kt[sl], fd, wed, wfd, scale)
         m = mask_s[:, None] & mask_t[None, sl]
         v = torch.where(m, -cd - prices[None, sl], NEG)
         state = _merge_top2(state, v, off)
@@ -201,6 +260,10 @@ def _lib():
         lib.stream_sweep.argtypes = ([_VP] * 8 + [_F] * 3 + [_I] * 6
                                      + [_VP] * 12)
         lib.stream_sweep.restype = _I
+        lib.stream_sweep_desc.argtypes = ([_VP] * 4 + [_I] * 2 + [_VP] * 4
+                                          + [_F] * 2 + [_I] * 4
+                                          + [_VP] * 12)
+        lib.stream_sweep_desc.restype = _I
         lib._typed = True
     return lib
 
@@ -213,21 +276,31 @@ def column_splits(S: int, C: int, n_sm: int) -> int:
     return max(1, min(n_ct, -(-2 * n_sm // n_rt)))
 
 
-def stream_sweep_cuda(kp_s, kp_t, feats: StreamFeatures, mask_s, mask_t,
-                      prices, acol, wed, wfd, scale) -> SweepResult:
-    """Launch K5 on the card."""
+def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
+                      wfd, scale) -> SweepResult:
+    """Launch K5 on the card (the similarity lane for a
+    :class:`DescFeatures`)."""
     from ghicp_tpu_torch.ops._build import check, ptr
     S, C = kp_s.shape[0], kp_t.shape[0]
-    V, _, W = feats.words_s.shape
-    if (V, W) not in _KERNEL_SHAPES:
-        raise ValueError(f"stream_sweep kernel: (V, W) = ({V}, {W}) not in "
-                         f"{sorted(_KERNEL_SHAPES)}")
     dev = kp_s.device
     f32, i32 = torch.float32, torch.int32
+    mult = isinstance(feats, DescFeatures)
+    if mult:
+        F = feats.fs.shape[1]
+        if not 0 < feats.dim <= F or F % 8:
+            raise ValueError(f"stream_sweep kernel: dim {feats.dim}, row "
+                             f"width {F}")
+        fs = as_rows(feats.fs, S, F, torch.bfloat16, dev, "fs")
+        ft = as_rows(feats.ft, C, F, torch.bfloat16, dev, "ft")
+    else:
+        V, _, W = feats.words_s.shape
+        if (V, W) not in _KERNEL_SHAPES:
+            raise ValueError(f"stream_sweep kernel: (V, W) = ({V}, {W}) not "
+                             f"in {sorted(_KERNEL_SHAPES)}")
+        ws = feats.words_s.to(device=dev, dtype=i32).contiguous()
+        wt = as_rows(feats.words_t, C, W, i32, dev, "words_t")
     ks = _factors(as_rows(kp_s, S, 3, f32, dev, "kp_s"))
     kt = _factors(as_rows(kp_t, C, 3, f32, dev, "kp_t"))
-    ws = feats.words_s.to(device=dev, dtype=i32).contiguous()
-    wt = as_rows(feats.words_t, C, W, i32, dev, "words_t")
     ms = as_rows(mask_s, S, 0, i32, dev, "mask_s")
     mt = as_rows(mask_t, C, 0, i32, dev, "mask_t")
     p = as_rows(prices, C, 0, f32, dev, "prices")
@@ -248,65 +321,88 @@ def stream_sweep_cuda(kp_s, kp_t, feats: StreamFeatures, mask_s, mask_t,
     n_blocks = -(-S // RT) * cs
     stats = torch.empty((n_blocks, 8), dtype=torch.float64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().stream_sweep(
-        ptr(ks), ptr(kt), ptr(ws), ptr(wt), ptr(ms), ptr(mt), ptr(p),
-        ptr(ac), _f32(wed), _f32(wfd), _f32(scale), S, C, V, W, cs,
-        n_blocks, ptr(v1), ptr(j1), ptr(v2), ptr(j2), ptr(vsel),
-        *[ptr(t) for t in parts], ptr(stats), _VP(stream))
+    outs = (ptr(v1), ptr(j1), ptr(v2), ptr(j2), ptr(vsel),
+            *[ptr(t) for t in parts], ptr(stats), _VP(stream))
+    if mult:
+        rc = _lib().stream_sweep_desc(
+            ptr(ks), ptr(kt), ptr(fs), ptr(ft), feats.dim, F, ptr(ms),
+            ptr(mt), ptr(p), ptr(ac), _f32(wfd), _f32(scale), S, C, cs,
+            n_blocks, *outs)
+    else:
+        rc = _lib().stream_sweep(
+            ptr(ks), ptr(kt), ptr(ws), ptr(wt), ptr(ms), ptr(mt), ptr(p),
+            ptr(ac), _f32(wed), _f32(wfd), _f32(scale), S, C, V, W, cs,
+            n_blocks, *outs)
     check(rc, "stream_sweep launch")
-    count_launch("stream_sweep")
+    count_launch("stream_sweep_mult" if mult else "stream_sweep")
     tot = stats[:, :3].sum(dim=0).to(f32)
     mx = stats[:, 3:7].amax(dim=0).to(f32)
     return SweepResult(v1, j1.to(torch.int64), v2, j2.to(torch.int64), vsel,
                        tot[0], tot[1], tot[2], mx[0], mx[1], mx[2], mx[3])
 
 
-def stream_sweep(kp_s, kp_t, feats: StreamFeatures, mask_s, mask_t, prices,
-                 acol, wed, wfd, scale, mult_blend: bool = False,
-                 no_features: bool = False,
+def stream_sweep(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed, wfd,
+                 scale, mult_blend: bool = False, no_features: bool = False,
                  col_side: bool = False) -> SweepResult:
     """One matrix-free sweep: per-row top-2 of (b - p), vsel at ``acol``
     and the CD statistics.  kp_s [S, 3] / kp_t [C, 3] float32, centred by
     a common offset; ``prices`` [C]; ``acol`` [S] previous column, SINK or
-    -1.  CUDA tensors run the kernel, CPU tensors the plain version."""
-    if mult_blend or no_features or col_side:
+    -1.  ``mult_blend`` (the FPFH/RoPS lane) takes :class:`DescFeatures`
+    and k in ``wfd``; the BSC lane :class:`StreamFeatures`.  CUDA tensors
+    run the kernel, CPU tensors the plain version."""
+    if no_features or col_side:
         raise NotImplementedError(
-            "stream_sweep: only the Hamming (BSC) lane is ported; "
-            "mult_blend, no_features and col_side are still to port")
+            "stream_sweep: the no_features and col_side lanes are still "
+            "to port")
+    if mult_blend != isinstance(feats, DescFeatures):
+        raise TypeError("stream_sweep: mult_blend takes DescFeatures, the "
+                        "BSC lane StreamFeatures")
     args = (kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed, wfd, scale)
     if require_device(kp_s, "stream_sweep") == "cuda":
         return stream_sweep_cuda(*args)
     return stream_sweep_plain(*args)
 
 
-def stream_selected(kp_s, kp_t, feats: StreamFeatures, tgt_idx, wed, wfd,
-                    scale):
+def stream_selected(kp_s, kp_t, feats, tgt_idx, wed, wfd, scale,
+                    mult_blend: bool = False):
     """(cd_sel, ed_sel, fd_sel) [S] at the pairs (i, tgt_idx[i]) from
-    factor gathers: ED by the direct norm, FD by XOR popcounts."""
+    factor gathers: ED by the direct norm, FD by XOR popcounts, or on the
+    similarity lane the similarity |fs_i . ft_j| and the multiplicative
+    blend."""
     dev = kp_s.device
     f = lambda x: torch.tensor(_f32(x), dtype=torch.float32, device=dev)
     tgt_idx = tgt_idx.to(torch.int64)
     ed = f(scale) * torch.linalg.norm(kp_s - kp_t[tgt_idx], dim=-1)
+    if mult_blend:
+        fd = torch.abs((feats.fs.to(torch.float32)
+                        * feats.ft[tgt_idx].to(torch.float32)).sum(dim=-1))
+        return mult_cost(ed, fd, f(wfd)), ed, fd
     x = (feats.words_s.to(torch.int64)
          ^ feats.words_t[tgt_idx].to(torch.int64)[None])
     fd = popcount32(x).sum(dim=-1).amin(dim=0).to(torch.float32)
     return f(wed) * ed + f(wfd) * fd, ed, fd
 
 
-def stream_feature_candidates(feats: StreamFeatures, mask_s, mask_t,
-                              tc: int = PLAIN_TC):
+def stream_feature_candidates(feats, mask_s, mask_t,
+                              mult_blend: bool = False, tc: int = PLAIN_TC):
     """Top-2 feature-nearest target columns per source row, matrix-free:
-    column blocks of -Hamming (max over variants).  Returns (cand [S, 2]
-    int64, cand_ok [S, 2] bool)."""
-    S = feats.words_s.shape[1]
-    C = feats.words_t.shape[0]
-    dev = feats.words_s.device
-    fs = unpack_words(feats.words_s)
+    column blocks of -Hamming (max over variants), or of the similarity
+    |fs . ft| (``mult_blend``, :class:`DescFeatures`; a float32 product
+    of the bf16 rows).  Returns (cand [S, 2] int64, cand_ok [S, 2] bool)."""
+    S, C = mask_s.shape[0], mask_t.shape[0]
+    dev = mask_s.device
+    if mult_blend:
+        a = feats.fs.to(torch.float32)
+    else:
+        fs = unpack_words(feats.words_s)
     state = _top2_init(S, dev)
     for off in range(0, C, tc):
         sl = slice(off, min(off + tc, C))
-        v = -_ham_block(fs, feats.na, unpack_words(feats.words_t[sl]),
-                        feats.nb[sl])
+        if mult_blend:
+            v = torch.abs(torch.matmul(a, feats.ft[sl].to(torch.float32).T))
+        else:
+            v = -_ham_block(fs, feats.na, unpack_words(feats.words_t[sl]),
+                            feats.nb[sl])
         v = torch.where(mask_s[:, None] & mask_t[None, sl], v, NEG)
         state = _merge_top2(state, v, off)
     v1, j1, v2, j2 = state

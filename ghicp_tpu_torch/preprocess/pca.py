@@ -10,7 +10,10 @@ per-query fallback over the same table.
 
 Feature definitions: curvature = l3 / (l1 + l2 + l3) with l1 >= l2 >= l3.
 ``torch.linalg.eigh`` returns ascending eigenvalues, so values and vectors
-are flipped to the descending order the keypoint stage reads.
+are flipped to the descending order the keypoint stage reads (which uses
+eigenvalues and curvature only).  :func:`pca_from_neighbors` (the FPFH
+normals) solves with the Jacobi ``ops/eigh3.py`` instead, whose
+eigenvector signs are the JAX package's.
 """
 from __future__ import annotations
 
@@ -19,8 +22,9 @@ from typing import NamedTuple
 import torch
 
 from ghicp_tpu_torch.core.types import PointCloud, bucket_size
+from ghicp_tpu_torch.ops.eigh3 import eigh3
 from ghicp_tpu_torch.preprocess.hashing import IMAX
-from ghicp_tpu_torch.preprocess.neighbors import (CellTable,
+from ghicp_tpu_torch.preprocess.neighbors import (CellTable, NeighborList,
                                                   build_cell_table,
                                                   cell_candidates,
                                                   neighbor_cells)
@@ -169,3 +173,32 @@ def pca_features_pair(cloud_a: PointCloud, cloud_b: PointCloud,
     """PCA features of both clouds of a pair."""
     return (pca_features(cloud_a, radius, cell_cap, max_cells),
             pca_features(cloud_b, radius, cell_cap, max_cells))
+
+
+def neighborhood_covariance(xyz: torch.Tensor, nb: NeighborList):
+    """(cov [N, 3, 3], mean [N, 3], count [N]): the plain covariance of
+    each point's listed neighbors."""
+    npts = xyz[nb.idx]                                  # [N, K, 3]
+    w = nb.valid.to(torch.float32)
+    cnt = w.sum(dim=1)
+    denom = torch.clamp(cnt, min=1.0)
+    mean = (npts * w[..., None]).sum(dim=1) / denom[:, None]
+    dm = npts - mean[:, None, :]
+    cov = torch.einsum("nki,nkj->nij", dm * w[..., None], dm)
+    return cov / denom[:, None, None], mean, cnt
+
+
+def pca_from_neighbors(cloud: PointCloud, nb: NeighborList) -> PCAFeatures:
+    """PCA features from a neighbor list, solved by the Jacobi
+    :func:`~ghicp_tpu_torch.ops.eigh3.eigh3` (the JAX package's solver and
+    eigenvector signs, which the FPFH angles depend on)."""
+    cov, _, cnt = neighborhood_covariance(cloud.xyz, nb)
+    vals, vecs = eigh3(cov)
+    vals = torch.clamp(vals, min=0.0)
+    total = vals.sum(dim=-1)
+    curvature = torch.where(total > 0, vals[:, 2] / torch.clamp(total,
+                                                              min=1e-30), 0.0)
+    return PCAFeatures(eigvals=vals, principal=vecs[:, :, 0],
+                       normal=vecs[:, :, 2], curvature=curvature,
+                       n_neighbors=cnt.to(torch.int64),
+                       valid=cloud.mask & (cnt >= 3))

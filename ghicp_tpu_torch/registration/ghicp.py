@@ -3,14 +3,18 @@
 One iteration (:func:`make_body`): ED + CD blend -> auction matching ->
 margin-weighted robust Kabsch with Tukey IRLS -> convergence test -> IoU
 penalty-weight step.  The feature distance is computed once before the
-loop.  The dense kernel lane (``fused_cost_kernel`` and keypoint
+loop.  Two blends: BSC's additive W_ED * ED + W_FD * FD with W_FD =
+exp(-it / rate), and FPFH/RoPS's multiplicative ED / max(FD, 1e-6)^k with
+FD a similarity and k = 1 / (it + 1) (``mult_blend``; every kernel takes k
+in its W_FD slot), each with its own penalty schedule and price drift
+bound.  The dense kernel lane (``fused_cost_kernel`` and keypoint
 capacities that are multiples of 128, the JAX package's gate) runs two
 solve branches:
 
 * the full solve — the fused benefit sweep (kernel K1) builds the bf16
   benefit matrix, the CD statistics and the warm-start hints, then the
   auction runs through the Gauss-Seidel phase kernel (K2);
-* the warm solve — once the BSC penalty schedule is statistics-free and an
+* the warm solve — once the penalty schedule is statistics-free and an
   assignment warm start exists (it > 1), at S, T >= 1024, one launch of
   the warm fused kernel (K3) does the whole solve.
 
@@ -23,11 +27,13 @@ shapes allow).  It is written over a leading pair axis:
 has converged or reached ``max_iterations`` keeping its state (the JAX
 package's vmapped ``while_loop``); a single pair runs it with P = 1.
 
-On the streaming lane (``stream``: packed BSC factors, no FD matrix) every
-iteration is one matrix-free solve
+On the streaming lane (``stream``: packed BSC factors or FPFH/RoPS
+descriptor rows, no FD matrix) every iteration is one matrix-free solve
 (:func:`ghicp_tpu_torch.matching.stream_auction.stream_solve`, sweeps of
-kernel K5), with a :class:`StreamCarry` of hints from one iteration to the
-next that lets statistics-free iterations skip sweep 0.
+kernel K5), on BSC with a :class:`StreamCarry` of hints from one iteration
+to the next that lets statistics-free iterations skip sweep 0 (the
+multiplicative blend has no such bound: its solves start cold, as in the
+JAX package).
 
 The loop is a host loop with one read of ``converged`` per iteration.
 :func:`ghicp_register` stops there, as the JAX package's does.
@@ -52,15 +58,15 @@ from ghicp_tpu_torch.core.device import resolve_device
 from ghicp_tpu_torch.matching.auction import (SINK, auction_match,
                                               auction_match_benefits,
                                               derive_acol)
-from ghicp_tpu_torch.matching.cost import (blend_bsc, bsc_penalty,
-                                           euclidean_matrix)
+from ghicp_tpu_torch.matching.cost import (blend_bsc, blend_fpfh,
+                                           bsc_penalty, euclidean_matrix,
+                                           mult_penalty)
 from ghicp_tpu_torch.matching.matchers import MatchResult
 from ghicp_tpu_torch.matching.stream_auction import (StreamCarry, carry_init,
                                                      stream_solve)
 from ghicp_tpu_torch.ops.auction_rounds import (auction_warm_fused,
                                                 gs_tile_rows)
-from ghicp_tpu_torch.ops.cost_kernel import fused_benefit
-from ghicp_tpu_torch.ops.stream_kernel import StreamFeatures
+from ghicp_tpu_torch.ops.cost_kernel import fused_benefit, mult_cost
 from ghicp_tpu_torch.registration.estimator import estimate
 
 
@@ -129,13 +135,38 @@ def _f32(x) -> float:
     return float(torch.tensor(float(x), dtype=torch.float32))
 
 
+MULT_FEATURES = (FeatureType.FPFH, FeatureType.ROPS)
+
+
 def blend_weights(it_eff: float, config: GHICPConfig):
-    """(W_ED, W_FD) as float32-rounded host floats: W_FD = exp(-it/rate)."""
+    """(W_ED, W_FD) as float32-rounded host floats: BSC W_FD =
+    exp(-it / rate); FPFH/RoPS (1, k = 1 / (it + 1))."""
+    if config.feature in MULT_FEATURES:
+        return 1.0, _f32(1.0 / _f32(it_eff + 1.0))
     if config.feature != FeatureType.BSC:
-        raise NotImplementedError("only the BSC lane is ported")
+        raise NotImplementedError(f"feature {config.feature} is not ported")
     wfd = torch.exp(torch.tensor(-_f32(it_eff), dtype=torch.float32)
                     / config.weight_changing_rate)
     return float(1.0 - wfd), float(wfd)
+
+
+def fd_min_of(fd, mask_s, mask_t) -> torch.Tensor:
+    """The least similarity over valid pairs (floored at 1e-6, per pair
+    with a pair axis): the FPFH/RoPS lane's drift-bound input, measured
+    once since the features are fixed."""
+    m = mask_s[..., :, None] & mask_t[..., None, :]
+    return torch.clamp(torch.where(m, fd.to(torch.float32), 1.0)
+                       .amin(dim=(-2, -1)), min=1e-6)
+
+
+def mult_drift(d_ed, i_eff, fd_min):
+    """FPFH/RoPS price-drift bound for the next warm start: only the ED
+    rise can over-price a column, amplified by at most fd_min^(-k_next),
+    k_next = 1 / (i_eff + 2) (``i_eff`` float32, a tensor with a pair
+    axis)."""
+    i_eff = torch.as_tensor(i_eff, dtype=torch.float32).to(d_ed.device)
+    k_next = 1.0 / (i_eff + 2.0)
+    return d_ed * torch.exp(k_next * torch.log(1.0 / fd_min))
 
 
 def masked_median_log(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -212,11 +243,14 @@ def initial_state(kp_s: torch.Tensor, n_target: int, config: GHICPConfig,
 
 
 def _check_lane(config: GHICPConfig, S: int, T: int, stream: bool,
-                kernel_lane: bool) -> None:
-    if (config.feature != FeatureType.BSC
+                kernel_lane: bool, batched: bool = False) -> None:
+    feats = (FeatureType.BSC,) if batched else (FeatureType.BSC,
+                                                *MULT_FEATURES)
+    if (config.feature not in feats
             or config.correspondence != CorrespondenceType.KM):
         raise NotImplementedError(
-            "the port's engine runs the BSC + KM lanes only")
+            "the port's engine runs KM with the "
+            + "/".join(f.value for f in feats) + " features only")
     if kernel_lane and not config.auction_bf16:
         raise NotImplementedError(
             "the kernel lane takes a bf16 FD / benefit matrix; "
@@ -249,11 +283,12 @@ def _pair_of(st: _State) -> _State:
 
 
 def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
-              config: GHICPConfig, stream: Optional[StreamFeatures] = None):
+              config: GHICPConfig, stream=None):
     """One GH-ICP iteration as a function ``_State -> _State``; with
-    ``stream`` (and ``fd`` None) on the streaming lane."""
+    ``stream`` (factors, ``fd`` None) on the streaming lane."""
     S, T = mask_s.shape[0], kp_t.shape[0]
     use_stream = stream is not None
+    mult = config.feature in MULT_FEATURES
     kernel_lane = (not use_stream and config.fused_cost_kernel
                    and S % 128 == 0 and T % 128 == 0)
     _check_lane(config, S, T, use_stream, kernel_lane)
@@ -274,6 +309,17 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
                  + torch.where(mask_t[:, None], kp_t, -3e38).amax(dim=0))
     kp_t_c = torch.where(mask_t[:, None], kp_t - mid[None, :], 0.0)
     fd_b = None if use_stream else fd.to(torch.bfloat16)
+    fd_min = None if use_stream or not mult else fd_min_of(fd, mask_s,
+                                                           mask_t)
+
+    def penalty_of(st, it_eff, wed, wfd, mean, std):
+        """The feature's penalty schedule from the CD statistics."""
+        if mult:
+            return mult_penalty(mean, it_eff, st.rms, st.para1, st.para2,
+                                scale_t, config.penalty_initial)
+        return bsc_penalty(mean, std, it_eff, st.rms, st.fdm, st.fdstd,
+                           st.para1, st.para2, scale_t, _f(wed, dev),
+                           _f(wfd, dev), config.penalty_initial)
     ts_gs = gs_tile_rows(T)
     use_warm_kernel = (not use_stream and config.warm_fused_kernel
                        and config.auction_round_kernel
@@ -285,13 +331,12 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
         (b, cnt, s1, s2, _cm, ed_max_f, b_max, v1_mid,
          vsel_mid) = fused_benefit(kps_c, kp_t_c, fd_b, mask_s, mask_t, wed,
                                    wfd, scale, p_defl=p_mid, acol0=st.acol,
-                                   with_stats=not it_eff > 1.0)
+                                   with_stats=mult or not it_eff > 1.0,
+                                   mult_blend=mult)
         n_valid = torch.clamp(cnt, min=1.0)
         mean = s1 / n_valid
         std = torch.sqrt(torch.clamp(s2 / n_valid - mean * mean, min=0.0))
-        penalty = bsc_penalty(mean, std, it_eff, st.rms, st.fdm, st.fdstd,
-                              st.para1, st.para2, scale_t, _f(wed, dev),
-                              _f(wfd, dev), config.penalty_initial)
+        penalty = penalty_of(st, it_eff, wed, wfd, mean, std)
         dpen = torch.abs(penalty - st.pen_prev)
         ares = auction_match_benefits(
             b, penalty, mask_s, mask_t, eps_final=config.km_eps,
@@ -307,9 +352,7 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
         """(penalty, p_start, positional and keyword arguments of the warm
         fused kernel) for one warm solve from state ``st``."""
         zero = _f(0.0, dev)
-        penalty = bsc_penalty(zero, zero, it_eff, st.rms, st.fdm, st.fdstd,
-                              st.para1, st.para2, scale_t, _f(wed, dev),
-                              _f(wfd, dev), config.penalty_initial)
+        penalty = penalty_of(st, it_eff, wed, wfd, zero, zero)
         dpen = torch.abs(penalty - st.pen_prev)
         p_start = torch.where(
             owner0 >= 0, torch.clamp(st.prices - (st.price_unc + dpen),
@@ -322,7 +365,7 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
                 p_start, owner0, acol_real, sunk0, own_ok, float(-penalty),
                 config.km_eps, config.auction_rel_eps, float(dpen), budget)
         kwargs = dict(ts=ts_gs, esc_after=max(budget // 4, 1),
-                      esc_period=max(budget // 16, 1))
+                      esc_period=max(budget // 16, 1), mult_blend=mult)
         return penalty, p_start, args, kwargs
 
     def warm_solve(st, it_eff, wed, wfd, budget, kps_c, owner0, real0):
@@ -355,7 +398,10 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
         ed_sel = scale_t * torch.sqrt(torch.clamp(s2 + t2 - 2.0 * dd,
                                                   min=0.0))
         fd_sel = fd_b[rows, jc].to(torch.float32)
-        cd_f = _f(wed, dev) * ed_sel + _f(wfd, dev) * fd_sel
+        if mult:
+            cd_f = mult_cost(ed_sel, fd_sel, _f(wfd, dev))
+        else:
+            cd_f = _f(wed, dev) * ed_sel + _f(wfd, dev) * fd_sel
         bsel = torch.where(mask_s & mask_t[jc], -cd_f, -3.0e38)
         real_m = mask_s & matched & (bsel > -penalty)
         w_m = real_m.to(torch.float32)
@@ -367,26 +413,23 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
                 punc_k)
 
     def stream_step(st, it_eff, wed, wfd, budget, kps_c):
-        """One matrix-free solve; the fast path (carried hints instead of
-        sweep 0) once the BSC penalty schedule is statistics-free, with a
-        full sweep 0 every ``stream_refresh_every`` iterations."""
-        def penalty_fn(mean, std):
-            return bsc_penalty(mean, std, it_eff, st.rms, st.fdm, st.fdstd,
-                               st.para1, st.para2, scale_t, _f(wed, dev),
-                               _f(wfd, dev), config.penalty_initial)
-
+        """One matrix-free solve; on BSC the fast path (carried hints
+        instead of sweep 0) once the penalty schedule is statistics-free,
+        with a full sweep 0 every ``stream_refresh_every`` iterations."""
+        fast = config.stream_fast_path and not mult
         sf = it_eff > 1.0
         if config.stream_refresh_every > 0:
             sf = sf and st.it % config.stream_refresh_every != 0
         return stream_solve(
             kps_c, kp_t_c, stream, mask_s, mask_t, wed, wfd, scale,
-            penalty_fn, eps_final=config.km_eps,
-            rel_eps=config.auction_rel_eps, max_sweeps=budget, p0=st.prices,
+            lambda mean, std: penalty_of(st, it_eff, wed, wfd, mean, std),
+            eps_final=config.km_eps, rel_eps=config.auction_rel_eps,
+            max_sweeps=budget, p0=st.prices,
             price_uncertainty=st.price_unc, acol0=st.acol,
-            pen_prev=st.pen_prev,
-            carry=st.scarry if config.stream_fast_path else None,
-            stats_free=sf, open_cap=config.stream_open_cap,
-            compact_extra_sweeps=config.stream_compact_budget)
+            pen_prev=st.pen_prev, carry=st.scarry if fast else None,
+            stats_free=sf and fast, open_cap=config.stream_open_cap,
+            compact_extra_sweeps=config.stream_compact_budget,
+            mult_blend=mult)
 
     def prepare(st):
         it_eff = _f32(st.it + st.it_shift)
@@ -488,9 +531,15 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
         r = config.weight_changing_rate
         i_eff = i + st.it_shift
         dwfd = math.exp(-i_eff / r) - math.exp(-(i_eff + 1.0) / r)
-        drift_next = d_ed + dwfd * (ed_max + d_ed)
+        if not mult:
+            drift_next = d_ed + dwfd * (ed_max + d_ed)
+        elif fd_min is not None:
+            drift_next = mult_drift(d_ed, _f32(i_eff), fd_min)
+        else:
+            # streaming similarity lane: no measured fd_min, cold start
+            drift_next = 3.0e38
         scarry = st.scarry
-        if sres is not None and config.stream_fast_path:
+        if sres is not None and config.stream_fast_path and not mult:
             # hints for the next fast solve: fresh or propagated row bounds,
             # the ED max inflated by this step's motion, and the two
             # wfd-decay rise bounds (global dwfd * fd_max and per-row ratio)
@@ -518,13 +567,15 @@ def make_batched_body(kp_t, mask_s, mask_t, fd, bbx_magnitude,
     function ``(_State, active) -> _State``: kp_t [P, T, 3], masks [P, S] /
     [P, T], fd [P, S, T], ``bbx_magnitude`` P host floats; ``active`` [P]
     host bools.  Every pair runs the iteration; the inactive ones keep
-    their state.  Per pair: ED and the BSC blend with its CD-statistics
-    penalty, the auction with the price and assignment warm start, then
-    the same tail as :func:`make_body`."""
+    their state.  Per pair: ED and the feature's blend with its
+    CD-statistics penalty, the auction with the price and assignment warm
+    start, then the same tail as :func:`make_body`."""
     P, S = mask_s.shape
     T = kp_t.shape[1]
     dev = kp_t.device
     fd = fd.to(torch.float32)
+    mult = config.feature in MULT_FEATURES
+    fd_min = fd_min_of(fd, mask_s, mask_t) if mult else None
     scale = torch.tensor([_f32(config.scale_factor * _f32(x))
                           for x in bbx_magnitude], device=dev)
     pair_mask = mask_s[:, :, None] & mask_t[:, None, :]
@@ -541,9 +592,15 @@ def make_batched_body(kp_t, mask_s, mask_t, fd, bbx_magnitude,
                           config.auction_warm_rounds,
                           config.auction_max_rounds)
         ed = euclidean_matrix(st.kps, kp_t, scale[:, None, None])
-        cost = blend_bsc(ed, fd, mask_s, mask_t, torch.from_numpy(it_eff),
-                         st.rms, st.fdm, st.fdstd, st.para1, st.para2,
-                         scale, r, config.penalty_initial)
+        if mult:
+            cost = blend_fpfh(ed, fd, mask_s, mask_t,
+                              torch.from_numpy(it_eff), st.rms, st.para1,
+                              st.para2, scale, config.penalty_initial)
+        else:
+            cost = blend_bsc(ed, fd, mask_s, mask_t,
+                             torch.from_numpy(it_eff), st.rms, st.fdm,
+                             st.fdstd, st.para1, st.para2, scale, r,
+                             config.penalty_initial)
         ed_max = ed.masked_fill_(~pair_mask, 0.0).amax(dim=(-2, -1))
         del ed
         penalty = cost.penalty
@@ -609,10 +666,14 @@ def make_batched_body(kp_t, mask_s, mask_t, fd, bbx_magnitude,
                                0.0).amax(dim=-1)
         d_ed = scale * max_disp
         i_eff = st.it + st.it_shift
-        dwfd = torch.tensor([math.exp(-i / r) - math.exp(-(i + 1.0) / r)
-                             for i in i_eff], dtype=torch.float32,
-                            device=dev)
-        drift_next = d_ed + dwfd * (ed_max + d_ed)
+        if mult:
+            drift_next = mult_drift(d_ed, torch.from_numpy(
+                i_eff.astype(np.float32)), fd_min)
+        else:
+            dwfd = torch.tensor([math.exp(-i / r) - math.exp(-(i + 1.0) / r)
+                                 for i in i_eff], dtype=torch.float32,
+                                device=dev)
+            drift_next = d_ed + dwfd * (ed_max + d_ed)
         new = dict(kps=kps_new, rt=tf.compose(rt_step, st.rt), rms=rmse,
                    fdm=fdm, fdstd=fdstd, para1=st.para1 + delta,
                    para2=st.para2 + delta,
@@ -630,8 +691,7 @@ def make_batched_body(kp_t, mask_s, mask_t, fd, bbx_magnitude,
 
 
 def final_resolve(state: _State, kp_t, mask_s, mask_t, fd,
-                  bbx_magnitude: float, config: GHICPConfig,
-                  stream: Optional[StreamFeatures] = None):
+                  bbx_magnitude: float, config: GHICPConfig, stream=None):
     """The one-to-one final matching.  Dense lane: one full-budget KM
     re-solve at the final pose, at the absolute ``km_eps``; streaming lane:
     no extra solve, the last iteration's matching.  Either is then
@@ -648,9 +708,12 @@ def final_resolve(state: _State, kp_t, mask_s, mask_t, fd,
         it_eff = _f32(max(state.it - 1, 0) + state.it_shift)
         wed, wfd = blend_weights(it_eff, config)
         ed = euclidean_matrix(state.kps, kp_t, _f(scale, dev))
-        cd = torch.where(mask_s[:, None] & mask_t[None, :],
-                         _f(wed, dev) * ed
-                         + _f(wfd, dev) * fd.to(torch.float32), torch.inf)
+        if config.feature in MULT_FEATURES:
+            cd = ed / torch.pow(torch.clamp(fd.to(torch.float32), min=1e-6),
+                                _f(wfd, dev))
+        else:
+            cd = _f(wed, dev) * ed + _f(wfd, dev) * fd.to(torch.float32)
+        cd = torch.where(mask_s[:, None] & mask_t[None, :], cd, torch.inf)
         del ed
         ares = auction_match(cd, state.pen_prev, mask_s, mask_t,
                              eps_final=config.km_eps,
@@ -690,7 +753,8 @@ def _loop(kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude, config,
     kp_s, mask_s, kp_t, mask_t = _on_device(dev, kp_s, mask_s, kp_t, mask_t)
     if stream is not None:
         fd = None
-        stream = StreamFeatures(*(to(x) for x in stream))
+        stream = type(stream)(*(to(x) if torch.is_tensor(x) else x
+                                for x in stream))
     else:
         fd = to(fd).to(torch.float32)
     T0 = None if init_transform is None else to(init_transform)
@@ -716,8 +780,7 @@ def _result(state: _State, final_rmse, matches, config: GHICPConfig):
 def ghicp_register(kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude: float,
                    config: GHICPConfig, init_transform=None,
                    it_shift: float = 0.0, device=None,
-                   iteration_callback=None,
-                   stream: Optional[StreamFeatures] = None) -> GHICPResult:
+                   iteration_callback=None, stream=None) -> GHICPResult:
     """Run the GH-ICP loop to convergence (or ``max_iterations``) with no
     final matching: the success verdict reads the last iteration's matched
     RMSE, ``matches`` is the last iteration's.  Arguments as
@@ -732,12 +795,11 @@ def ghicp_register_chunked(kp_s, mask_s, kp_t, mask_t, fd,
                            bbx_magnitude: float, config: GHICPConfig,
                            init_transform=None, it_shift: float = 0.0,
                            device=None, iteration_callback=None,
-                           stream: Optional[StreamFeatures] = None
-                           ) -> GHICPResult:
+                           stream=None) -> GHICPResult:
     """Run the GH-ICP loop to convergence (or ``max_iterations``), then
     the one-to-one final matching.  Inputs are moved to ``device`` (the
-    card by default).  ``stream`` (packed BSC factors, ``fd`` None)
-    selects the streaming lane.  ``iteration_callback(it, kps, matches)``
+    card by default).  ``stream`` (``fd`` None: packed BSC factors, or
+    FPFH/RoPS ``DescFeatures``) selects the streaming lane.  ``iteration_callback(it, kps, matches)``
     gets host numpy copies after every iteration."""
     state, kp_t, mask_s, mask_t, fd, bbx, stream = _loop(
         kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude, config,
@@ -768,7 +830,8 @@ def ghicp_register_batched(kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude,
     dev = resolve_device(device)
     to = lambda x: torch.as_tensor(x).to(dev)
     kp_s, mask_s, kp_t, mask_t = _on_device(dev, kp_s, mask_s, kp_t, mask_t)
-    _check_lane(cfg, kp_s.shape[1], kp_t.shape[1], False, False)
+    _check_lane(cfg, kp_s.shape[1], kp_t.shape[1], False, False,
+                batched=True)
     T0 = None if init_transform is None else to(init_transform)
     bbx = [float(x) for x in torch.as_tensor(bbx_magnitude).reshape(-1)]
     state = initial_state(kp_s, kp_t.shape[1], cfg, T0, it_shift)

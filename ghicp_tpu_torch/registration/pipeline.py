@@ -1,13 +1,18 @@
 """End-to-end pair registration: voxel downsample -> curvature keypoints
-(+ sub-voxel refinement) -> BSC features -> Hamming FD -> RANSAC coarse
-pose -> GH-ICP engine -> one-to-one final matching.
+(+ sub-voxel refinement) -> features -> FD -> RANSAC coarse pose -> GH-ICP
+engine -> one-to-one final matching.
 
 Between stages the padded clouds are compacted into power-of-two buckets.
-BSC features with KM (auction) matching, on two lanes: the dense lane
+KM (auction) matching with one of three features: BSC (FD the Hamming
+distance), FPFH (histograms over the whole downsampled cloud, FD their
+|Pearson| similarity) or RoPS (descriptors at the keypoints, FD the
+similarity of the whitened descriptors); on two lanes: the dense lane
 builds the [cap, cap] FD matrix; the streaming lane (``streaming_cost``
 "on", or "auto" above ``streaming_threshold`` keypoints) keeps the packed
-bits as factors and never builds an [S, T] tensor.  The options the port
-does not carry yet raise ``NotImplementedError``.
+bits or the standardized descriptor rows as factors and never builds an
+[S, T] tensor.  RANSAC draws its candidates from the features (1 - FD for
+a similarity); only BSC gives it local frames.  The options the port does
+not carry yet raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,9 +30,14 @@ from ghicp_tpu_torch.core.device import resolve_device
 from ghicp_tpu_torch.core.types import (PointCloud, bucket_size,
                                         cloud_bounds, compact_device)
 from ghicp_tpu_torch.features.bsc import extract_bsc
+from ghicp_tpu_torch.features.fpfh import (fpfh_features,
+                                           fpfh_similarity_matrix)
 from ghicp_tpu_torch.features.hamming import min_hamming_fd
+from ghicp_tpu_torch.features.rops import (rops_features,
+                                           rops_similarity_matrix)
 from ghicp_tpu_torch.matching.ransac import ransac_coarse_align
-from ghicp_tpu_torch.ops.stream_kernel import (make_stream_features,
+from ghicp_tpu_torch.ops.stream_kernel import (make_desc_features,
+                                               make_stream_features,
                                                stream_feature_candidates,
                                                subset_rows)
 from ghicp_tpu_torch.preprocess.keypoints import (compact_candidates,
@@ -35,7 +45,7 @@ from ghicp_tpu_torch.preprocess.keypoints import (compact_candidates,
                                                   refine_positions)
 from ghicp_tpu_torch.preprocess.pca import pca_features_pair
 from ghicp_tpu_torch.preprocess.voxel import voxel_downsample
-from ghicp_tpu_torch.registration.ghicp import (GHICPResult,
+from ghicp_tpu_torch.registration.ghicp import (MULT_FEATURES, GHICPResult,
                                                 ghicp_register_chunked)
 
 
@@ -100,9 +110,10 @@ def _morton_order_rows(xyz: torch.Tensor, mask: torch.Tensor):
 
 
 def _check_supported(config: GHICPConfig) -> None:
-    if (config.feature != FeatureType.BSC
+    if (config.feature not in (FeatureType.BSC, *MULT_FEATURES)
             or config.correspondence != CorrespondenceType.KM):
-        raise NotImplementedError("the port runs the BSC + KM lanes only")
+        raise NotImplementedError(
+            "the port runs KM with the BSC, FPFH and RoPS features only")
     if config.adaptive_keypoints:
         raise NotImplementedError("adaptive_keypoints is not ported yet")
     if config.identity_hypotheses > 1:
@@ -174,16 +185,38 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
             kp_s = refine_positions(kp_s, kp_s_mask, cc_s, curv_s, radius=rr)
             kp_t = refine_positions(kp_t, kp_t_mask, cc_t, curv_t, radius=rr)
 
+    mult = config.feature in MULT_FEATURES
+    frames_s = frames_t = fd = stream = None
     with _stage("features", timings, dev):
-        fs = extract_bsc(ds, kp_s, kp_s_mask, config,
-                         num_variants=config.bsc_num_variants)
-        ft = extract_bsc(dt, kp_t, kp_t_mask, config, num_variants=1)
-        if use_stream:
-            fd = None
-            stream = make_stream_features(fs.packed, ft.packed)
+        if config.feature == FeatureType.BSC:
+            fs = extract_bsc(ds, kp_s, kp_s_mask, config,
+                             num_variants=config.bsc_num_variants)
+            ft = extract_bsc(dt, kp_t, kp_t_mask, config, num_variants=1)
+            frames_s, frames_t = fs.frames, ft.frames
+            if use_stream:
+                stream = make_stream_features(fs.packed, ft.packed)
+            else:
+                fd = min_hamming_fd(fs.packed, ft.packed, fs.n_bits)
+        elif config.feature == FeatureType.FPFH:
+            radius = config.fpfh_radius or 3.0 * config.voxel_size
+            k = max(config.fpfh_k, 24)
+            desc_s = fpfh_features(ds, radius, k)[0][kp_s_idx]
+            desc_t = fpfh_features(dt, radius, k)[0][kp_t_idx]
+            if use_stream:
+                stream = make_desc_features(desc_s, desc_t, "rows")
+            else:
+                fd = fpfh_similarity_matrix(desc_s, desc_t)
         else:
-            fd = min_hamming_fd(fs.packed, ft.packed, fs.n_bits)
-            stream = None
+            kw = dict(radius=config.rops_radius or config.non_max_radius,
+                      neighbor_k=config.rops_neighbor_k,
+                      n_rotations=config.rops_rotations,
+                      n_bins=config.rops_bins)
+            desc_s = rops_features(ds, kp_s, kp_s_mask, **kw).desc
+            desc_t = rops_features(dt, kp_t, kp_t_mask, **kw).desc
+            if use_stream:
+                stream = make_desc_features(desc_s, desc_t, "dims")
+            else:
+                fd = rops_similarity_matrix(desc_s, desc_t)
 
     T0 = None if initial_transform is None else torch.as_tensor(
         np.asarray(initial_transform, np.float32), device=dev)
@@ -198,19 +231,21 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
                 rsel = torch.arange(0, cap, -(-cap // config.ransac_max_rows),
                                     device=dev)
                 cand, cand_ok = stream_feature_candidates(
-                    subset_rows(stream, rsel), kp_s_mask[rsel], kp_t_mask)
+                    subset_rows(stream, rsel), kp_s_mask[rsel], kp_t_mask,
+                    mult_blend=mult)
                 rr_ = ransac_coarse_align(
                     kp_s[rsel], kp_s_mask[rsel], kp_t, kp_t_mask, None,
                     tau=tau, n_hyp=config.ransac_hypotheses,
-                    frames_s=fs.frames[rsel], frames_t=ft.frames, cand=cand,
-                    cand_ok=cand_ok)
+                    frames_s=None if frames_s is None else frames_s[rsel],
+                    frames_t=frames_t, cand=cand, cand_ok=cand_ok)
             else:
+                # a similarity turns into a distance (smaller = closer)
                 rr_ = ransac_coarse_align(kp_s, kp_s_mask, kp_t, kp_t_mask,
-                                          fd, tau=tau,
+                                          1.0 - fd if mult else fd, tau=tau,
                                           n_hyp=config.ransac_hypotheses,
                                           n_cand=config.ransac_candidates,
-                                          frames_s=fs.frames,
-                                          frames_t=ft.frames)
+                                          frames_s=frames_s,
+                                          frames_t=frames_t)
             if rr_.inliers >= config.ransac_min_inliers:
                 T0 = rr_.transform
                 # skip the feature-dominant schedule phase (W_FD from e^-3)

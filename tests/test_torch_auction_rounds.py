@@ -132,3 +132,55 @@ def test_plain_k3_matches_jax_warm_kernel_and_hungarian():
     ri, ci = linear_sum_assignment(cost)
     eps = float(M[5][2])
     assert energy <= cost[ri, ci].sum() + (S + 2) * eps + 1e-3
+
+
+def test_plain_k3_mult_blend_matches_jax_warm_kernel():
+    """The FPFH/RoPS lane of K3 at 1024 x 1024 (the size from which the
+    engine takes the warm kernel): a similarity FD with exact zeros, cold
+    prices; owners and rounds against the JAX kernel in interpret mode,
+    the energy against the Hungarian optimum of the gated problem."""
+    kps, kpt, fd, ms, mt = _warm_fixture(seed=12, S=1024, C=1024)
+    S, C = fd.shape
+    sim = np.array(jnp.asarray(fd / 200.0).astype(jnp.bfloat16)
+                   .astype(jnp.float32))
+    sim[::7, ::5] = 0.0
+    wfd, scale, penalty = 1.0 / 3.0, 0.15, 2.0
+    p0 = np.zeros(C, np.float32)
+    o0 = np.full(C, -1, np.int32)
+    acol0 = np.full(S, -1, np.int32)
+    s0 = np.zeros(S, np.int32)
+    ok0 = np.zeros(S, bool)
+    J = auction_warm_fused_pallas(
+        jnp.asarray(kps), jnp.asarray(kpt),
+        jnp.asarray(sim).astype(jnp.bfloat16), jnp.asarray(ms),
+        jnp.asarray(mt), 1.0, wfd, scale, jnp.asarray(p0), jnp.asarray(o0),
+        jnp.asarray(acol0), jnp.asarray(s0), jnp.asarray(ok0), -penalty,
+        0.02, 0.0, 0.0, 200, ts=128, esc_after=0, esc_period=1,
+        mult_blend=True, quantize=False, interpret=True)
+    M = auction_warm_fused(T(kps), T(kpt), T(sim).to(torch.bfloat16), T(ms),
+                           T(mt), 1.0, wfd, scale, T(p0), T(o0), T(acol0),
+                           T(s0), T(ok0), -penalty, 0.02, 0.0, 0.0, 200,
+                           ts=128, esc_after=0, esc_period=1,
+                           mult_blend=True)
+    owner_j, owner_m = np.asarray(J[1]), M[1].numpy()
+    assert np.mean(owner_j == owner_m) >= 0.995
+    assert abs(int(J[3]) - int(M[3])) <= 1
+    b = np.asarray(fused_benefit_ref(
+        jnp.asarray(kps), jnp.asarray(kpt),
+        jnp.asarray(sim).astype(jnp.bfloat16), jnp.asarray(ms),
+        jnp.asarray(mt), 1.0, wfd, scale,
+        mult_blend=True)[0].astype(jnp.float32))
+    acol = np.full(S, -1, np.int64)
+    cols = np.nonzero(owner_m >= 0)[0]
+    acol[owner_m[cols]] = cols
+    gate = b > -penalty
+    jc = np.where(acol >= 0, acol, 0)
+    matched = (acol >= 0) & gate[np.arange(S), jc]
+    energy = (-b[np.arange(S), jc][matched].sum()
+              + penalty * (max(S, C) - matched.sum()))
+    n = max(S, C)
+    cost = np.full((n, n), penalty, np.float64)
+    cost[:S, :C] = np.where(gate, -b, penalty)
+    ri, ci = linear_sum_assignment(cost)
+    eps = float(M[5][2])
+    assert energy <= cost[ri, ci].sum() + (S + 2) * eps + 1e-3

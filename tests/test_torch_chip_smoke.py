@@ -39,8 +39,11 @@ def test_compare_phase_at_small_size(monkeypatch):
         stream_cols=384, compact_rows=128,
         top2_shapes=((2, 128, 256, "bfloat16"), (1, 64, 96, "float32")))
     assert [r["name"] for r in rows] == ["fused_benefit", "auction_phase_gs",
-                                         "auction_warm_fused", "nms_exact",
-                                         "stream_sweep", "top2_rows"]
+                                         "auction_warm_fused",
+                                         "fused_benefit_mult",
+                                         "auction_warm_fused_mult",
+                                         "nms_exact", "stream_sweep",
+                                         "top2_rows", "stream_sweep_mult"]
     for r in rows:
         assert r["max_abs_err"] == 0.0
         assert r["bound_ms"] > 0

@@ -74,3 +74,39 @@ def test_plain_k1_matches_jax_kernel_and_ref(with_stats):
                                        rtol=1e-4)
         np.testing.assert_allclose(float(got[4]), float(stats[4]),
                                    rtol=1e-5)                # cd_max
+
+
+def test_plain_k1_mult_blend_matches_jax_kernel_and_ref():
+    """The FPFH/RoPS lane, cd = ed * exp(-k log(max(fd, 1e-6))), on a
+    similarity FD with exact zeros (the 1e-6 floor), with the tolerances
+    of the JAX package's own kernel-vs-reference test."""
+    ks, kt, fd, ms, mt, p, acol0 = _fixture(seed=7)
+    sim = fd / 441.0
+    sim[::5, ::3] = 0.0
+    w = (1.0, 1.0 / 3.0, 0.22)
+    simb = jnp.asarray(sim).astype(jnp.bfloat16)
+    jargs = (jnp.asarray(ks), jnp.asarray(kt), simb, jnp.asarray(ms),
+             jnp.asarray(mt)) + w
+    jk = jax_fused_benefit(*jargs, ts=128, interpret=True,
+                           p_defl=jnp.asarray(p), acol0=jnp.asarray(acol0),
+                           mult_blend=True)
+    jr = fused_benefit_ref(*jargs, p_defl=jnp.asarray(p),
+                           acol0=jnp.asarray(acol0), mult_blend=True)
+    T = torch.from_numpy
+    got = fused_benefit(T(ks), T(kt), T(sim).to(torch.bfloat16), T(ms),
+                        T(mt), *w, p_defl=T(p), acol0=T(acol0),
+                        mult_blend=True)
+    b = got[0].to(torch.float32).numpy()
+    for want in (jk, jr):
+        np.testing.assert_allclose(b, np.asarray(want[0].astype(jnp.float32)),
+                                   rtol=1e-2, atol=1e-2)
+        for i in range(1, 6):
+            np.testing.assert_allclose(float(got[i]), float(want[i]),
+                                       rtol=1e-4)
+        # b_max = -(least CD), at the nearest pair: the norm-expansion ED
+        # keeps only an absolute accuracy there (scale * ~1e-5 / |ED|),
+        # and the cross term is three float32 products here, a dot there
+        np.testing.assert_allclose(float(got[6]), float(want[6]), atol=1e-4)
+        for i in (7, 8):                                     # v1, vsel
+            np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]),
+                                       rtol=1e-5, atol=1e-5)

@@ -95,3 +95,101 @@ def test_whole_engine(problem, interpret):
     m = got.matches.numpy()
     m = m[m >= 0]
     assert len(m) > S // 2 and len(np.unique(m)) == len(m)
+
+
+def _descriptors(src, tgt, T_gt, D, seed):
+    """Descriptors [S, D] / [T, D] whose true pairs correlate: each source
+    row copies its true partner's (found through the known pose) with
+    noise."""
+    rng = np.random.default_rng(seed)
+    moved = src @ T_gt[:3, :3].T + T_gt[:3, 3]
+    d2 = ((moved[:, None, :] - tgt[None, :, :]) ** 2).sum(-1)
+    partner = d2.argmin(axis=1)
+    desc_t = rng.gamma(2.0, 5.0, (len(tgt), D)).astype(np.float32)
+    desc_s = (desc_t[partner]
+              + rng.normal(0, 4.0, (len(src), D))).astype(np.float32)
+    return desc_s, desc_t
+
+
+@pytest.mark.parametrize("feature", [FeatureType.FPFH, FeatureType.ROPS])
+def test_whole_engine_mult_blend(problem, interpret, feature, monkeypatch):
+    """The FPFH / RoPS lane (multiplicative blend, K1 and K3 in their
+    mult form, K2) from the same similarity matrix and config as the JAX
+    engine with its fused and warm kernels in interpret mode."""
+    import ghicp_tpu_torch.registration.ghicp as tgh
+    from ghicp_tpu.features.fpfh import fpfh_similarity_matrix
+    from ghicp_tpu.features.rops import rops_similarity_matrix
+    calls = []
+    warm = tgh.auction_warm_fused
+    monkeypatch.setattr(tgh, "auction_warm_fused", lambda *a, **k: (
+        calls.append(k["mult_blend"]), warm(*a, **k))[1])
+    src, tgt, _, _, _, T_gt = problem
+    ms, mt = np.ones(S, bool), np.ones(T, bool)
+    ms[-32:] = False
+    if feature == FeatureType.FPFH:
+        ds, dt = _descriptors(src, tgt, T_gt, 33, seed=3)
+        sim = fpfh_similarity_matrix(jnp.asarray(ds), jnp.asarray(dt))
+    else:
+        ds, dt = _descriptors(src, tgt, T_gt, 135, seed=4)
+        sim = rops_similarity_matrix(jnp.asarray(ds), jnp.asarray(dt))
+    sim = np.asarray(sim)
+    # convergence off: the iterations past the second take the warm kernel
+    cfg_j = dataclasses.replace(BASE, feature=feature, max_iterations=6,
+                                converge_translation=0.0,
+                                converge_rotation=0.0)
+    want = jgh.ghicp_register_chunked(
+        jnp.asarray(src), jnp.asarray(ms), jnp.asarray(tgt), jnp.asarray(mt),
+        jnp.asarray(sim), jnp.float32(40.0), cfg_j)
+    cfg = config_from_dict(dataclasses.asdict(cfg_j))
+    got = ghicp_register_chunked(src, ms, tgt, mt, sim, 40.0, cfg,
+                                 device="cpu")
+    Tj, Tt = np.asarray(want.transform), got.transform.numpy()
+    rot, tr = transform_error(Tt, Tj)
+    assert rot < 0.5 and tr < 0.1, (rot, tr)
+    for T_est in (Tj, Tt):
+        rot, tr = transform_error(T_est, T_gt)
+        assert rot < 1.0 and tr < 0.2, (rot, tr)
+    # iterations from the third on took the mult form of K3
+    assert calls and all(calls) and len(calls) == int(got.iterations) - 2
+    m = got.matches.numpy()
+    m = m[m >= 0]
+    # the late penalty (RMSE * scale) shrinks with the RMSE, so few pairs
+    # stay matched once the pose is exact: in both packages alike
+    n_j = int((np.asarray(want.matches) >= 0).sum())
+    assert abs(len(m) - n_j) <= max(3, 0.2 * n_j), (len(m), n_j)
+    assert len(np.unique(m)) == len(m)
+
+
+def test_xla_lane_mult_blend_matches_jax(problem):
+    """The XLA lane with the FPFH blend (``blend_fpfh`` and the Jacobi
+    rounds, ``fused_cost_kernel=False``) against the JAX package's XLA
+    lane, iteration by iteration, from the same similarity matrix."""
+    from ghicp_tpu.features.fpfh import fpfh_similarity_matrix
+    src, tgt, _, _, _, T_gt = problem
+    n = 512
+    src = src[:n]
+    ms, mt = np.ones(n, bool), np.ones(T, bool)
+    ds, dt = _descriptors(src, tgt, T_gt, 33, seed=5)
+    sim = np.asarray(fpfh_similarity_matrix(jnp.asarray(ds),
+                                            jnp.asarray(dt)))
+    cfg_j = dataclasses.replace(BASE, feature=FeatureType.FPFH,
+                                fused_cost_kernel=False,
+                                auction_round_kernel=False,
+                                max_iterations=5, converge_translation=0.0,
+                                converge_rotation=0.0)
+    want = jgh.ghicp_register(jnp.asarray(src), jnp.asarray(ms),
+                              jnp.asarray(tgt), jnp.asarray(mt),
+                              jnp.asarray(sim), jnp.float32(40.0), cfg_j)
+    got = ghicp_register_chunked(src, ms, tgt, mt, sim, 40.0,
+                                 config_from_dict(dataclasses.asdict(cfg_j)),
+                                 device="cpu")
+    cor_j = np.asarray(want.metrics.cor)
+    assert np.all(np.abs(got.metrics.cor.numpy() - cor_j)
+                  <= np.maximum(2, 0.02 * cor_j))
+    # late penalties are the matched RMSE * scale: a pair matched in one
+    # package and not the other moves it by a fraction of a percent
+    np.testing.assert_allclose(got.metrics.penalty.numpy(),
+                               np.asarray(want.metrics.penalty), rtol=5e-3)
+    rot, tr = transform_error(got.transform.numpy(),
+                              np.asarray(want.transform))
+    assert rot < 0.1 and tr < 0.02, (rot, tr)

@@ -182,3 +182,61 @@ def test_identity_start_trajectory_matches_jax():
                                   np.asarray(want.metrics.rounds))
     np.testing.assert_allclose(got.transform.numpy(),
                                np.asarray(want.transform), atol=1e-5)
+
+
+@pytest.mark.parametrize("standardize", ["rows", "dims"])
+def test_mult_blend_streaming_engine_matches_jax(standardize):
+    """The FPFH ("rows") / RoPS ("dims") streaming lane: factors built by
+    the JAX package and carried across, both engines eight iterations from
+    identity with convergence off; no fast path (the multiplicative blend
+    has no drift bound), the same pose; and the port's dense similarity
+    lane on the same descriptors lands it too."""
+    from ghicp_tpu.features.fpfh import fpfh_similarity_matrix
+    from ghicp_tpu.features.rops import rops_similarity_matrix
+    from ghicp_tpu_torch.interop import desc_features_from_numpy
+    src, tgt, _, _, _, T_gt = registration_problem(S, T, seed=31,
+                                                   rot_deg=8.0)
+    D = 33 if standardize == "rows" else 135
+    rng = np.random.default_rng(9)
+    moved = src @ T_gt[:3, :3].T + T_gt[:3, 3]
+    partner = ((moved[:, None] - tgt[None]) ** 2).sum(-1).argmin(axis=1)
+    desc_t = rng.gamma(2.0, 5.0, (T, D)).astype(np.float32)
+    desc_s = (desc_t[partner] + rng.normal(0, 4.0, (S, D))).astype(np.float32)
+    feature = (FeatureType.FPFH if standardize == "rows"
+               else FeatureType.ROPS)
+    cfg = dataclasses.replace(BASE, feature=feature, max_iterations=8,
+                              converge_translation=0.0,
+                              converge_rotation=0.0)
+    jf = jax_feats(desc_s=jnp.asarray(desc_s), desc_t=jnp.asarray(desc_t),
+                   standardize=standardize)
+    m = np.ones(S, bool)
+    m[-8:] = False
+    mt = np.ones(T, bool)
+    want = jgh.ghicp_register(jnp.asarray(src), jnp.asarray(m),
+                              jnp.asarray(tgt), jnp.asarray(mt), None,
+                              jnp.float32(40.0), cfg, stream=jf)
+    cfg_t = config_from_dict(dataclasses.asdict(cfg))
+    feats = desc_features_from_numpy(np.asarray(jf.fs), np.asarray(jf.ft), D)
+    got = ghicp_register_chunked(src, m, tgt, mt, None, 40.0, cfg_t,
+                                 device="cpu", stream=feats)
+    assert int(got.metrics.fast.sum()) == 0
+    rot, tr = transform_error(got.transform.numpy(),
+                              np.asarray(want.transform))
+    assert rot < 0.5 and tr < 0.1, (rot, tr)
+    cor_j = np.asarray(want.metrics.cor)
+    assert np.all(np.abs(got.metrics.cor.numpy() - cor_j)
+                  <= np.maximum(3, 0.05 * cor_j))
+    sim = (fpfh_similarity_matrix if standardize == "rows"
+           else rops_similarity_matrix)(jnp.asarray(desc_s),
+                                        jnp.asarray(desc_t))
+    dense = ghicp_register_chunked(src, m, tgt, mt, np.array(sim), 40.0,
+                                   cfg_t, device="cpu")
+    for T_est in (got.transform.numpy(), dense.transform.numpy()):
+        rot, tr = transform_error(T_est, T_gt)
+        assert rot < 1.0 and tr < 0.2, (rot, tr)
+    rot, tr = transform_error(got.transform.numpy(),
+                              dense.transform.numpy())
+    assert rot < 0.5 and tr < 0.1, (rot, tr)
+    mm = got.matches.numpy()
+    mm = mm[mm >= 0]
+    assert len(np.unique(mm)) == len(mm)
