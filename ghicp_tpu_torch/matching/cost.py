@@ -1,8 +1,9 @@
-"""Cost-matrix pieces shared by the engine: ED and the two blends.
+"""Cost-matrix pieces shared by the engine: ED and the three blends.
 
 * ``euclidean_matrix`` — ED[i, j] = scale * ||s_i - t_j|| by the norm
   expansion, with the cross term as explicit float32 products (no
   reduced-precision matrix unit);
+* ``blend_none`` — feature "none": CD = ED, penalty max(mean ED, 1);
 * ``blend_bsc`` — CD = W_ED * ED + W_FD * FD, W_FD = exp(-iter / rate),
   with the penalty schedule of :func:`bsc_penalty`;
 * ``blend_fpfh`` — FPFH/RoPS: CD = ED / max(FD, 1e-6)^k, k = 1 / (iter +
@@ -11,7 +12,7 @@
   kernel form; this XLA-lane form keeps its ``power``).
 
 Masked pairs carry CD = +inf; statistics run over valid pairs only.  All
-three take an optional leading pair axis ([P, S, 3] keypoints, [P, S, T]
+take an optional leading pair axis ([P, S, 3] keypoints, [P, S, T]
 matrices) and then compute their statistics per pair.
 """
 from __future__ import annotations
@@ -63,6 +64,21 @@ def _masked_stats(x: torch.Tensor, m: torch.Tensor):
     mean = s1 / n
     var = torch.clamp(s2 / n - mean * mean, min=0.0)
     return mean, torch.sqrt(var)
+
+
+def none_penalty(mean):
+    """Feature "none" penalty: the mean ED over valid pairs, floored at 1
+    (the reference overwrites its RMS-based value with this one)."""
+    return torch.clamp(mean, min=1.0)
+
+
+def blend_none(ed, mask_s, mask_t) -> CostResult:
+    """No-feature cost: CD = ED at valid pairs, penalty
+    :func:`none_penalty`."""
+    m = mask_s[..., :, None] & mask_t[..., None, :]
+    mean, std = _masked_stats(ed, m)
+    return CostResult(cd=torch.where(m, ed, torch.inf),
+                      penalty=none_penalty(mean), cd_mean=mean, cd_std=std)
 
 
 def bsc_penalty(mean, std, iteration, rms, fdm, fdstd, para1, para2, scale,

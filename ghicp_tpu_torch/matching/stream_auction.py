@@ -6,7 +6,8 @@ Same forward-auction semantics as :mod:`ghicp_tpu_torch.matching.auction`
 starts), with every full-matrix reduction replaced by a sweep of kernel K5
 (:func:`ghicp_tpu_torch.ops.stream_kernel.stream_sweep`): benefits are
 rebuilt from the coordinate and feature factors inside each sweep (packed
-BSC bits, or with ``mult_blend`` the FPFH/RoPS descriptor rows).
+BSC bits, with ``mult_blend`` the FPFH/RoPS descriptor rows, with
+:class:`NoFeatures` none at all).
 
 A solve spends one sweep for the CD statistics and the warm-start hints
 (sweep 0; skipped on the warm fast path, where a :class:`StreamCarry` from
@@ -123,7 +124,8 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
     and the carried bounds.  ``open_cap`` > 0 compacts the open rows into
     a block of that many rows (rounded up to the kernel's row tile) once
     they fit.  ``mult_blend``: the FPFH/RoPS lane (``feats`` a
-    ``DescFeatures``, k in ``wfd``).
+    ``DescFeatures``, k in ``wfd``); ``feats`` a ``NoFeatures``: the
+    feature-"none" lane (CD = W_ED * ED).
     """
     S, C = kp_s.shape[0], kp_t.shape[0]
     dev = kp_s.device

@@ -4,7 +4,8 @@ Every kernel wrapper launches its kernel for CUDA tensors and runs the
 plain version for CPU tensors only.  Each launch adds one to the kernel's
 count in :data:`LAUNCHES`, so a run can show which kernels its path went
 through; the FPFH/RoPS (multiplicative-blend) variants of K1, K3 and K5
-count under their own ``*_mult`` names.
+count under their own ``*_mult`` names, K5's feature-"none" variant under
+``stream_sweep_none`` and its column-side variants under ``*_col``.
 """
 from __future__ import annotations
 
@@ -15,7 +16,10 @@ LAUNCHES: dict[str, int] = {"fused_benefit": 0, "auction_phase_gs": 0,
                             "stream_sweep": 0, "top2_rows": 0,
                             "fused_benefit_mult": 0,
                             "auction_warm_fused_mult": 0,
-                            "stream_sweep_mult": 0}
+                            "stream_sweep_mult": 0, "stream_sweep_col": 0,
+                            "stream_sweep_mult_col": 0,
+                            "stream_sweep_none": 0,
+                            "stream_sweep_none_col": 0}
 
 
 def count_launch(name: str) -> None:

@@ -58,13 +58,20 @@ def mult_cost(ed, sim, wfd):
     return ed * torch.exp(-wfd * torch.log(torch.clamp(sim, min=1e-6)))
 
 
+def factor_ed(ks, kt, scale):
+    """ED [S, C] float32 from the (x, y, z, |x|^2) factor rows, in the
+    kernels' operation order."""
+    d2 = torch.clamp((ks[:, 3:4] + kt[None, :, 3]) - 2.0 * cross3(ks, kt),
+                     min=0.0)
+    return torch.tensor(_f32(scale), dtype=torch.float32,
+                        device=ks.device) * torch.sqrt(d2)
+
+
 def factor_cost(ks, kt, fd, wed, wfd, scale, mult_blend: bool = False):
     """(ED, CD) [S, C] float32 from the (x, y, z, |x|^2) factor rows and FD,
     in the kernels' operation order."""
     f = lambda x: torch.tensor(_f32(x), dtype=torch.float32, device=fd.device)
-    d2 = torch.clamp((ks[:, 3:4] + kt[None, :, 3]) - 2.0 * cross3(ks, kt),
-                     min=0.0)
-    ed = f(scale) * torch.sqrt(d2)
+    ed = factor_ed(ks, kt, scale)
     if mult_blend:
         return ed, mult_cost(ed, fd.to(torch.float32), f(wfd))
     return ed, f(wed) * ed + f(wfd) * fd.to(torch.float32)

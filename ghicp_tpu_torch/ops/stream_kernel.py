@@ -11,6 +11,7 @@ every target column, without materializing [S, C]:
         CD = W_ED * ED + W_FD * FD
   FPFH/RoPS: sim = max(|fs_i . ft_j|, 1e-6) over standardized bf16 rows
         (:class:`DescFeatures`), CD = ED * exp(-k log(sim)), k = W_FD
+  none: CD = W_ED * ED, FD = 0
   v = -CD - p[j] at valid pairs
 
 and keeps per row the top-2 of v (v1, j1, v2, j2; the lowest column on
@@ -27,10 +28,15 @@ product, whose order is its own.
 
 Bound on this card: integer operations on the Hamming lane, V * W * (XOR
 + POPC + add) a pair; float operations on the similarity lane, 2 D a pair
-plus the blend.  The bytes (coordinates and factors, read once) are a few
-MB.  The design notes are at the head of the CUDA source.  The feature-
-"none" lane and the column-side reduction of the NNR matcher are not
-ported yet: the wrapper raises for them.
+plus the blend; on the feature-"none" lane (:class:`NoFeatures`, no
+factor is read, CD = W_ED * ED) the float operations of ED, the blend,
+the top-2 and the statistics.  The bytes (coordinates and factors, read
+once) are a few MB.  ``col_side`` (every lane; the reciprocal-NN matcher)
+adds per column the least CD over valid rows and the lowest row that
+reaches it (``cmin`` / ``crow``).  The design notes are at the head of the
+CUDA source.  Every variant counts its launches under its own name
+(``stream_sweep``, ``stream_sweep_mult``, ``stream_sweep_none``, each with
+a ``_col`` twin).
 
 :func:`stream_selected` (matched-pair gathers),
 :func:`stream_feature_candidates` (the RANSAC candidates; a ``lax.scan``
@@ -40,15 +46,21 @@ PyTorch on either device.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+import struct
+from typing import NamedTuple, Optional
 
 import torch
 
 from ghicp_tpu_torch.ops import as_rows, count_launch, require_device
 from ghicp_tpu_torch.ops.cost_kernel import (_f32, _factors, factor_cost,
-                                             mult_cost)
+                                             factor_ed, mult_cost)
 
 NEG = -3.0e38
+NO_COL = 3.0e38     # cmin of a column without a valid row
+NO_ROW = 2**30      # its crow
+# the kernel's column key of such a column: (bits(float32 NO_COL) << 32) |
+# NO_ROW
+_COL_KEY0 = (struct.unpack("<I", struct.pack("<f", NO_COL))[0] << 32) | NO_ROW
 RT = 128        # rows a block of the kernel (the compaction granule)
 TC = 128        # columns a staged tile of the kernel
 PLAIN_TC = 1024
@@ -75,6 +87,13 @@ class DescFeatures(NamedTuple):
                             # to a multiple of 128)
 
 
+class NoFeatures(NamedTuple):
+    """The feature-"none" lane's factors: there are none.  CD = W_ED * ED
+    and FD = 0; no bit or descriptor row is allocated or read."""
+
+    n_rows: int             # S, the source rows (checked by the sweep)
+
+
 class SweepResult(NamedTuple):
     v1: torch.Tensor        # [S] max_j (b - p)
     j1: torch.Tensor        # [S] int64 its column (lowest on ties)
@@ -88,6 +107,10 @@ class SweepResult(NamedTuple):
     ed_max: torch.Tensor
     b_max: torch.Tensor     # max -CD over valid pairs
     fd_max: torch.Tensor    # max FD over valid pairs
+    # ``col_side`` only: [C] least CD over valid rows, and the lowest row
+    # reaching it (3e38 and 2^30 where a column has no valid row)
+    cmin: Optional[torch.Tensor] = None
+    crow: Optional[torch.Tensor] = None
 
 
 def to_words(packed: torch.Tensor) -> torch.Tensor:
@@ -144,6 +167,8 @@ def make_desc_features(desc_s: torch.Tensor, desc_t: torch.Tensor,
 
 def subset_rows(feats, idx: torch.Tensor):
     """The source factor rows ``idx`` (targets unchanged)."""
+    if isinstance(feats, NoFeatures):
+        return NoFeatures(n_rows=int(idx.shape[0]))
     if isinstance(feats, DescFeatures):
         return feats._replace(fs=feats.fs[idx].contiguous())
     return feats._replace(words_s=feats.words_s[:, idx].contiguous(),
@@ -197,17 +222,31 @@ def _top2_init(S: int, dev):
     return neg, zi, neg.clone(), zi.clone()
 
 
+def _col_block(cd, m, rows):
+    """([c] least CD over valid rows, [c] the lowest row reaching it) of
+    one column block; NO_COL / NO_ROW where a column has no valid row."""
+    cdc = torch.where(m, cd, NO_COL)
+    cmin = cdc.amin(dim=0)
+    crow = torch.where(cdc == cmin[None, :], rows[:, None], NO_ROW).amin(
+        dim=0)
+    return cmin, torch.where(cmin < NO_COL, crow, NO_ROW)
+
+
 def stream_sweep_plain(kp_s, kp_t, feats, mask_s, mask_t, prices, acol,
-                       wed, wfd, scale, tc: int = PLAIN_TC) -> SweepResult:
+                       wed, wfd, scale, tc: int = PLAIN_TC,
+                       col_side: bool = False) -> SweepResult:
     """Plain PyTorch version of K5: column blocks of ``tc`` (the JAX
     package's ``stream_sweep_ref``), statistics summed in float64; the
-    similarity lane when ``feats`` is a :class:`DescFeatures`."""
+    similarity lane when ``feats`` is a :class:`DescFeatures`, the none
+    lane for :class:`NoFeatures`; ``col_side`` adds ``cmin`` / ``crow``."""
     S, C = kp_s.shape[0], kp_t.shape[0]
     dev = kp_s.device
     ks, kt = _factors(kp_s), _factors(kp_t)
     mult = isinstance(feats, DescFeatures)
-    fs = None if mult else unpack_words(feats.words_s)
+    none = isinstance(feats, NoFeatures)
+    fs = None if mult or none else unpack_words(feats.words_s)
     acol = acol.to(torch.int64)
+    rows = torch.arange(S, device=dev)
     state = _top2_init(S, dev)
     vsel = torch.full((S,), NEG, dtype=torch.float32, device=dev)
     cnt = torch.zeros((), dtype=torch.int64, device=dev)
@@ -216,9 +255,15 @@ def stream_sweep_plain(kp_s, kp_t, feats, mask_s, mask_t, prices, acol,
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     cmax, emax, fmax = zero, zero, zero
     bmax = torch.full((), NEG, dtype=torch.float32, device=dev)
+    col_parts = []
     for off in range(0, C, tc):
         sl = slice(off, min(off + tc, C))
-        if mult:
+        if none:
+            ed = factor_ed(ks, kt[sl], scale)
+            cd = torch.tensor(_f32(wed), dtype=torch.float32,
+                              device=dev) * ed
+            fd = torch.zeros_like(ed)
+        elif mult:
             ed, cd = factor_cost(ks, kt[sl], _sim_block(
                 feats.fs, feats.ft[sl], feats.dim), wed, wfd, scale, True)
             fd = torch.zeros_like(ed)
@@ -232,6 +277,8 @@ def stream_sweep_plain(kp_s, kp_t, feats, mask_s, mask_t, prices, acol,
         cols = torch.arange(sl.start, sl.stop, device=dev)
         vsel = torch.maximum(vsel, torch.where(
             cols[None, :] == acol[:, None], v, NEG).amax(dim=1))
+        if col_side:
+            col_parts.append(_col_block(cd, m, rows))
         cdm = torch.where(m, cd, 0.0)
         cnt = cnt + m.sum()
         s1 = s1 + cdm.to(torch.float64).sum()
@@ -242,8 +289,12 @@ def stream_sweep_plain(kp_s, kp_t, feats, mask_s, mask_t, prices, acol,
         fmax = torch.maximum(fmax, torch.where(m, fd, 0.0).amax())
     v1, j1, v2, j2 = state
     f = lambda x: x.to(torch.float32)
+    cmin = crow = None
+    if col_side:
+        cmin = torch.cat([c for c, _ in col_parts])
+        crow = torch.cat([r for _, r in col_parts])
     return SweepResult(v1, j1, v2, j2, vsel, f(cnt.to(torch.float64)), f(s1),
-                       f(s2), cmax, emax, bmax, fmax)
+                       f(s2), cmax, emax, bmax, fmax, cmin, crow)
 
 
 # ---------------------------------------------------------------------------
@@ -258,11 +309,11 @@ def _lib():
     lib = cuda_library("stream")
     if not getattr(lib, "_typed", False):
         lib.stream_sweep.argtypes = ([_VP] * 8 + [_F] * 3 + [_I] * 6
-                                     + [_VP] * 12)
+                                     + [_VP] * 13)
         lib.stream_sweep.restype = _I
         lib.stream_sweep_desc.argtypes = ([_VP] * 4 + [_I] * 2 + [_VP] * 4
                                           + [_F] * 2 + [_I] * 4
-                                          + [_VP] * 12)
+                                          + [_VP] * 13)
         lib.stream_sweep_desc.restype = _I
         lib._typed = True
     return lib
@@ -277,9 +328,9 @@ def column_splits(S: int, C: int, n_sm: int) -> int:
 
 
 def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
-                      wfd, scale) -> SweepResult:
+                      wfd, scale, col_side: bool = False) -> SweepResult:
     """Launch K5 on the card (the similarity lane for a
-    :class:`DescFeatures`)."""
+    :class:`DescFeatures`, the none lane for :class:`NoFeatures`)."""
     from ghicp_tpu_torch.ops._build import check, ptr
     S, C = kp_s.shape[0], kp_t.shape[0]
     dev = kp_s.device
@@ -292,6 +343,9 @@ def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
                              f"width {F}")
         fs = as_rows(feats.fs, S, F, torch.bfloat16, dev, "fs")
         ft = as_rows(feats.ft, C, F, torch.bfloat16, dev, "ft")
+    elif isinstance(feats, NoFeatures):
+        V = W = 0
+        ws = wt = None
     else:
         V, _, W = feats.words_s.shape
         if (V, W) not in _KERNEL_SHAPES:
@@ -320,9 +374,12 @@ def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
         parts = [v1, j1, v2, j2, vsel]
     n_blocks = -(-S // RT) * cs
     stats = torch.empty((n_blocks, 8), dtype=torch.float64, device=dev)
+    colkey = (torch.full((C,), _COL_KEY0, dtype=torch.int64, device=dev)
+              if col_side else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    vp = lambda t: _VP(None) if t is None else ptr(t)
     outs = (ptr(v1), ptr(j1), ptr(v2), ptr(j2), ptr(vsel),
-            *[ptr(t) for t in parts], ptr(stats), _VP(stream))
+            *[ptr(t) for t in parts], ptr(stats), vp(colkey), _VP(stream))
     if mult:
         rc = _lib().stream_sweep_desc(
             ptr(ks), ptr(kt), ptr(fs), ptr(ft), feats.dim, F, ptr(ms),
@@ -330,37 +387,45 @@ def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
             n_blocks, *outs)
     else:
         rc = _lib().stream_sweep(
-            ptr(ks), ptr(kt), ptr(ws), ptr(wt), ptr(ms), ptr(mt), ptr(p),
+            ptr(ks), ptr(kt), vp(ws), vp(wt), ptr(ms), ptr(mt), ptr(p),
             ptr(ac), _f32(wed), _f32(wfd), _f32(scale), S, C, V, W, cs,
             n_blocks, *outs)
     check(rc, "stream_sweep launch")
-    count_launch("stream_sweep_mult" if mult else "stream_sweep")
+    name = ("stream_sweep_mult" if mult else "stream_sweep_none"
+            if V == 0 else "stream_sweep")
+    count_launch(name + "_col" if col_side else name)
     tot = stats[:, :3].sum(dim=0).to(f32)
     mx = stats[:, 3:7].amax(dim=0).to(f32)
+    cmin = crow = None
+    if col_side:
+        cmin = (colkey >> 32).to(i32).view(f32)
+        crow = colkey & _M32
     return SweepResult(v1, j1.to(torch.int64), v2, j2.to(torch.int64), vsel,
-                       tot[0], tot[1], tot[2], mx[0], mx[1], mx[2], mx[3])
+                       tot[0], tot[1], tot[2], mx[0], mx[1], mx[2], mx[3],
+                       cmin, crow)
 
 
 def stream_sweep(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed, wfd,
-                 scale, mult_blend: bool = False, no_features: bool = False,
+                 scale, mult_blend: bool = False,
                  col_side: bool = False) -> SweepResult:
     """One matrix-free sweep: per-row top-2 of (b - p), vsel at ``acol``
     and the CD statistics.  kp_s [S, 3] / kp_t [C, 3] float32, centred by
     a common offset; ``prices`` [C]; ``acol`` [S] previous column, SINK or
     -1.  ``mult_blend`` (the FPFH/RoPS lane) takes :class:`DescFeatures`
-    and k in ``wfd``; the BSC lane :class:`StreamFeatures`.  CUDA tensors
-    run the kernel, CPU tensors the plain version."""
-    if no_features or col_side:
-        raise NotImplementedError(
-            "stream_sweep: the no_features and col_side lanes are still "
-            "to port")
+    and k in ``wfd``; the none lane takes :class:`NoFeatures`, the BSC
+    lane :class:`StreamFeatures`.  ``col_side`` adds the per-column
+    least CD and its lowest row.  CUDA tensors run the kernel, CPU tensors
+    the plain version."""
     if mult_blend != isinstance(feats, DescFeatures):
         raise TypeError("stream_sweep: mult_blend takes DescFeatures, the "
                         "BSC lane StreamFeatures")
+    if isinstance(feats, NoFeatures) and feats.n_rows != kp_s.shape[0]:
+        raise ValueError(f"stream_sweep: NoFeatures of {feats.n_rows} rows "
+                         f"for {kp_s.shape[0]} source rows")
     args = (kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed, wfd, scale)
     if require_device(kp_s, "stream_sweep") == "cuda":
-        return stream_sweep_cuda(*args)
-    return stream_sweep_plain(*args)
+        return stream_sweep_cuda(*args, col_side=col_side)
+    return stream_sweep_plain(*args, col_side=col_side)
 
 
 def stream_selected(kp_s, kp_t, feats, tgt_idx, wed, wfd, scale,
@@ -368,11 +433,13 @@ def stream_selected(kp_s, kp_t, feats, tgt_idx, wed, wfd, scale,
     """(cd_sel, ed_sel, fd_sel) [S] at the pairs (i, tgt_idx[i]) from
     factor gathers: ED by the direct norm, FD by XOR popcounts, or on the
     similarity lane the similarity |fs_i . ft_j| and the multiplicative
-    blend."""
+    blend; with :class:`NoFeatures` FD = 0 and CD = W_ED * ED."""
     dev = kp_s.device
     f = lambda x: torch.tensor(_f32(x), dtype=torch.float32, device=dev)
     tgt_idx = tgt_idx.to(torch.int64)
     ed = f(scale) * torch.linalg.norm(kp_s - kp_t[tgt_idx], dim=-1)
+    if isinstance(feats, NoFeatures):
+        return f(wed) * ed, ed, torch.zeros_like(ed)
     if mult_blend:
         fd = torch.abs((feats.fs.to(torch.float32)
                         * feats.ft[tgt_idx].to(torch.float32)).sum(dim=-1))

@@ -1,46 +1,49 @@
-"""The GH-ICP registration engine, KM lanes (PyTorch port).
+"""The GH-ICP registration engine (PyTorch port).
 
-One iteration (:func:`make_body`): ED + CD blend -> auction matching ->
-margin-weighted robust Kabsch with Tukey IRLS -> convergence test -> IoU
-penalty-weight step.  The feature distance is computed once before the
-loop.  Two blends: BSC's additive W_ED * ED + W_FD * FD with W_FD =
-exp(-it / rate), and FPFH/RoPS's multiplicative ED / max(FD, 1e-6)^k with
-FD a similarity and k = 1 / (it + 1) (``mult_blend``; every kernel takes k
-in its W_FD slot), each with its own penalty schedule and price drift
-bound.  The dense kernel lane (``fused_cost_kernel`` and keypoint
-capacities that are multiples of 128, the JAX package's gate) runs two
-solve branches:
+One iteration (:func:`make_body`): ED + CD blend -> matching -> Kabsch
+(margin-weighted with Tukey IRLS after a KM matching) -> convergence test
+-> IoU penalty-weight step.  The feature distance is computed once before
+the loop.  Three blends: BSC's additive W_ED * ED + W_FD * FD with W_FD =
+exp(-it / rate), FPFH/RoPS's multiplicative ED / max(FD, 1e-6)^k with FD a
+similarity and k = 1 / (it + 1) (``mult_blend``; every kernel takes k in
+its W_FD slot), and feature "none"'s CD = ED (W_ED = 1, W_FD = 0), each
+with its own penalty schedule and price drift bound.  Three matchings: KM
+(the auction), NN (each row's closest column under the penalty gate) and
+NNR (reciprocal closest pairs).  The dense kernel lane (KM,
+``fused_cost_kernel`` and keypoint capacities that are multiples of 128,
+the JAX package's gate) runs two solve branches:
 
 * the full solve — the fused benefit sweep (kernel K1) builds the bf16
   benefit matrix, the CD statistics and the warm-start hints, then the
   auction runs through the Gauss-Seidel phase kernel (K2);
-* the warm solve — once the penalty schedule is statistics-free and an
-  assignment warm start exists (it > 1), at S, T >= 1024, one launch of
-  the warm fused kernel (K3) does the whole solve.
+* the warm solve — BSC and FPFH/RoPS, once the penalty schedule is
+  statistics-free and an assignment warm start exists (it > 1), at S, T >=
+  1024, one launch of the warm fused kernel (K3) does the whole solve.
 
 Otherwise the dense lane is the XLA lane (:func:`make_batched_body`): ED,
-the BSC blend and its penalty as plain tensor passes, then
+the blend and its penalty as plain tensor passes, then
 :func:`ghicp_tpu_torch.matching.auction.auction_match` (the Jacobi rounds
 with kernel K6, or the GS kernel under ``auction_round_kernel`` where its
-shapes allow).  It is written over a leading pair axis:
+shapes allow), or the NN / NNR matchers.  It is written over a leading pair axis:
 :func:`ghicp_register_batched` runs one engine over P pairs, a pair that
 has converged or reached ``max_iterations`` keeping its state (the JAX
 package's vmapped ``while_loop``); a single pair runs it with P = 1.
 
-On the streaming lane (``stream``: packed BSC factors or FPFH/RoPS
-descriptor rows, no FD matrix) every iteration is one matrix-free solve
+On the streaming lane (``stream``: packed BSC factors, FPFH/RoPS
+descriptor rows or :class:`NoFeatures`, no FD matrix) every KM iteration is
+one matrix-free solve
 (:func:`ghicp_tpu_torch.matching.stream_auction.stream_solve`, sweeps of
 kernel K5), on BSC with a :class:`StreamCarry` of hints from one iteration
-to the next that lets statistics-free iterations skip sweep 0 (the
-multiplicative blend has no such bound: its solves start cold, as in the
-JAX package).
+to the next that lets statistics-free iterations skip sweep 0 (the other
+blends take no such shortcut, as in the JAX package); every NN / NNR
+iteration one K5 sweep at zero prices (NNR with its column side).
 
 The loop is a host loop with one read of ``converged`` per iteration.
 :func:`ghicp_register` stops there, as the JAX package's does.
-:func:`ghicp_register_chunked` then runs the one-to-one final matching
-(:func:`final_resolve`): on the dense lanes one full-budget warm re-solve
-at the final pose, on the streaming lane a deduplication of the last
-matching.
+:func:`ghicp_register_chunked` then runs, after a KM matching, the
+one-to-one final matching (:func:`final_resolve`): on the dense lanes one
+full-budget warm re-solve at the final pose, on the streaming lane a
+deduplication of the last matching.
 """
 from __future__ import annotations
 
@@ -59,14 +62,17 @@ from ghicp_tpu_torch.matching.auction import (SINK, auction_match,
                                               auction_match_benefits,
                                               derive_acol)
 from ghicp_tpu_torch.matching.cost import (blend_bsc, blend_fpfh,
-                                           bsc_penalty, euclidean_matrix,
-                                           mult_penalty)
-from ghicp_tpu_torch.matching.matchers import MatchResult
+                                           blend_none, bsc_penalty,
+                                           euclidean_matrix, mult_penalty,
+                                           none_penalty)
+from ghicp_tpu_torch.matching.matchers import (MatchResult, nn_match,
+                                               nnr_match)
 from ghicp_tpu_torch.matching.stream_auction import (StreamCarry, carry_init,
                                                      stream_solve)
 from ghicp_tpu_torch.ops.auction_rounds import (auction_warm_fused,
                                                 gs_tile_rows)
 from ghicp_tpu_torch.ops.cost_kernel import fused_benefit, mult_cost
+from ghicp_tpu_torch.ops.stream_kernel import stream_selected, stream_sweep
 from ghicp_tpu_torch.registration.estimator import estimate
 
 
@@ -140,11 +146,11 @@ MULT_FEATURES = (FeatureType.FPFH, FeatureType.ROPS)
 
 def blend_weights(it_eff: float, config: GHICPConfig):
     """(W_ED, W_FD) as float32-rounded host floats: BSC W_FD =
-    exp(-it / rate); FPFH/RoPS (1, k = 1 / (it + 1))."""
+    exp(-it / rate); FPFH/RoPS (1, k = 1 / (it + 1)); none (1, 0)."""
     if config.feature in MULT_FEATURES:
         return 1.0, _f32(1.0 / _f32(it_eff + 1.0))
-    if config.feature != FeatureType.BSC:
-        raise NotImplementedError(f"feature {config.feature} is not ported")
+    if config.feature == FeatureType.NONE:
+        return 1.0, 0.0
     wfd = torch.exp(torch.tensor(-_f32(it_eff), dtype=torch.float32)
                     / config.weight_changing_rate)
     return float(1.0 - wfd), float(wfd)
@@ -244,13 +250,9 @@ def initial_state(kp_s: torch.Tensor, n_target: int, config: GHICPConfig,
 
 def _check_lane(config: GHICPConfig, S: int, T: int, stream: bool,
                 kernel_lane: bool, batched: bool = False) -> None:
-    feats = (FeatureType.BSC,) if batched else (FeatureType.BSC,
-                                                *MULT_FEATURES)
-    if (config.feature not in feats
-            or config.correspondence != CorrespondenceType.KM):
+    if batched and config.feature in MULT_FEATURES:
         raise NotImplementedError(
-            "the port's engine runs KM with the "
-            + "/".join(f.value for f in feats) + " features only")
+            "the port's batched engine runs the bsc and none features only")
     if kernel_lane and not config.auction_bf16:
         raise NotImplementedError(
             "the kernel lane takes a bf16 FD / benefit matrix; "
@@ -289,7 +291,11 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
     S, T = mask_s.shape[0], kp_t.shape[0]
     use_stream = stream is not None
     mult = config.feature in MULT_FEATURES
-    kernel_lane = (not use_stream and config.fused_cost_kernel
+    bsc = config.feature == FeatureType.BSC
+    none = config.feature == FeatureType.NONE
+    km = config.correspondence == CorrespondenceType.KM
+    nnr = config.correspondence == CorrespondenceType.NNR
+    kernel_lane = (not use_stream and km and config.fused_cost_kernel
                    and S % 128 == 0 and T % 128 == 0)
     _check_lane(config, S, T, use_stream, kernel_lane)
     if not use_stream and not kernel_lane:
@@ -317,12 +323,14 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
         if mult:
             return mult_penalty(mean, it_eff, st.rms, st.para1, st.para2,
                                 scale_t, config.penalty_initial)
+        if none:
+            return none_penalty(mean)
         return bsc_penalty(mean, std, it_eff, st.rms, st.fdm, st.fdstd,
                            st.para1, st.para2, scale_t, _f(wed, dev),
                            _f(wfd, dev), config.penalty_initial)
     ts_gs = gs_tile_rows(T)
     use_warm_kernel = (not use_stream and config.warm_fused_kernel
-                       and config.auction_round_kernel
+                       and (bsc or mult) and config.auction_round_kernel
                        and config.auction_phases == 1
                        and S % ts_gs == 0 and S >= 1024 and T >= 1024
                        and ts_gs * T <= 256 * 8192)
@@ -331,7 +339,7 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
         (b, cnt, s1, s2, _cm, ed_max_f, b_max, v1_mid,
          vsel_mid) = fused_benefit(kps_c, kp_t_c, fd_b, mask_s, mask_t, wed,
                                    wfd, scale, p_defl=p_mid, acol0=st.acol,
-                                   with_stats=mult or not it_eff > 1.0,
+                                   with_stats=not bsc or not it_eff > 1.0,
                                    mult_blend=mult)
         n_valid = torch.clamp(cnt, min=1.0)
         mean = s1 / n_valid
@@ -416,7 +424,7 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
         """One matrix-free solve; on BSC the fast path (carried hints
         instead of sweep 0) once the penalty schedule is statistics-free,
         with a full sweep 0 every ``stream_refresh_every`` iterations."""
-        fast = config.stream_fast_path and not mult
+        fast = config.stream_fast_path and bsc
         sf = it_eff > 1.0
         if config.stream_refresh_every > 0:
             sf = sf and st.it % config.stream_refresh_every != 0
@@ -430,6 +438,35 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
             stats_free=sf and fast, open_cap=config.stream_open_cap,
             compact_extra_sweeps=config.stream_compact_budget,
             mult_blend=mult)
+
+    zero_p = torch.zeros((T,), dtype=torch.float32, device=dev)
+    no_acol = torch.full((S,), -1, dtype=torch.int64, device=dev)
+
+    def nn_stream_step(st, it_eff, wed, wfd, kps_c):
+        """NN / NNR on the streaming lane: one sweep at zero prices, whose
+        row top-1 is each row's closest column (v1 = -min CD); NN keeps a
+        row below the penalty, NNR a row that is its column's lowest row
+        at the column minimum (the sweep's column side).  Returns (match,
+        fsel, cd_sel, penalty, ed_max)."""
+        sw = stream_sweep(kps_c, kp_t_c, stream, mask_s, mask_t, zero_p,
+                          no_acol, wed, wfd, scale, mult_blend=mult,
+                          col_side=nnr)
+        n_valid = torch.clamp(sw.cnt, min=1.0)
+        mean = sw.cd_sum / n_valid
+        std = torch.sqrt(torch.clamp(sw.cd_sumsq / n_valid - mean * mean,
+                                     min=0.0))
+        penalty = penalty_of(st, it_eff, wed, wfd, mean, std)
+        mincd = -sw.v1
+        ok = mask_s & (sw.v1 > -1.0e38)
+        if nnr:
+            ok = ok & (sw.crow[sw.j1] == rows)
+        else:
+            ok = ok & (mincd < penalty)
+        w = ok.to(torch.float32)
+        fsel = stream_selected(kps_c, kp_t_c, stream, sw.j1, wed, wfd,
+                               scale, mult)[2]
+        return (MatchResult(tgt_idx=sw.j1, w=w, n_matches=w.sum()), fsel,
+                mincd, penalty, sw.ed_max)
 
     def prepare(st):
         it_eff = _f32(st.it + st.it_shift)
@@ -454,11 +491,17 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
 
     def body(st: _State) -> _State:
         it_eff, wed, wfd, budget, kps_c, owner0, real0 = prepare(st)
+        if use_stream and not km:
+            match, fsel, cd_sel, penalty, ed_max = nn_stream_step(
+                st, it_eff, wed, wfd, kps_c)
+            return _tail(st, match, _f(0.0, dev), 0, st.prices, st.acol,
+                         cd_sel, penalty, ed_max, torch.zeros_like(zero_p),
+                         fsel)
         if use_stream:
             sres = stream_step(st, it_eff, wed, wfd, budget, kps_c)
             return _tail(st, sres.match, sres.energy, sres.rounds,
                          sres.prices, sres.acol, sres.cd_sel, sres.penalty,
-                         sres.ed_max, sres.punc, sres)
+                         sres.ed_max, sres.punc, sres.fd_sel, sres)
         if use_warm_kernel and it_eff > 1.0 and st.it > 1:
             outs = warm_solve(st, it_eff, wed, wfd, budget, kps_c, owner0,
                               real0)
@@ -469,27 +512,28 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
         (match, energy, rounds, prices, acol_new, cd_sel, penalty,
          ed_max, punc_new) = outs
         return _tail(st, match, energy, rounds, prices, acol_new, cd_sel,
-                     penalty, ed_max, punc_new)
+                     penalty, ed_max, punc_new,
+                     fd_b[rows, match.tgt_idx].to(torch.float32))
 
     def _tail(st, match, energy, rounds, prices, acol_new, cd_sel, penalty,
-              ed_max, punc_new, sres=None):
+              ed_max, punc_new, fsel, sres=None):
         w = match.w
         tgt_idx = match.tgt_idx
         cor = w.sum()
-        fsel = (sres.fd_sel if sres is not None
-                else fd_b[rows, tgt_idx].to(torch.float32))
         rmse, fdm, fdstd = matched_stats(st.kps, kp_t, fsel, tgt_idx, w)
         iou = cor / torch.clamp(ns + nt - cor, min=1.0)
         tgt_pts = kp_t[tgt_idx]
         w_est = w
-        if config.confidence_weighting:
+        # margin weights and IRLS serve the KM gate; NN / NNR keep the plain
+        # weights (their high-residual pairs carry the rotation)
+        if config.confidence_weighting and km:
             margin = torch.clamp(penalty - cd_sel, min=0.0)
             margin = torch.where(w > 0, margin, 0.0)
             msum = torch.clamp(margin.sum(), min=1e-12)
             nw = torch.clamp(w.sum(), min=1.0)
             w_est = margin * (nw / msum)
         rt_step = estimate(st.kps, tgt_pts, w_est, dof=config.reg_dof)
-        for _ in range(config.robust_irls_rounds):
+        for _ in range(config.robust_irls_rounds if km else 0):
             resid = torch.linalg.norm(tf.apply(rt_step, st.kps) - tgt_pts,
                                       dim=-1)
             rscale = masked_median_log(resid, w_est > 0)
@@ -531,15 +575,17 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
         r = config.weight_changing_rate
         i_eff = i + st.it_shift
         dwfd = math.exp(-i_eff / r) - math.exp(-(i_eff + 1.0) / r)
-        if not mult:
+        if bsc:
             drift_next = d_ed + dwfd * (ed_max + d_ed)
+        elif none:
+            drift_next = d_ed
         elif fd_min is not None:
             drift_next = mult_drift(d_ed, _f32(i_eff), fd_min)
         else:
             # streaming similarity lane: no measured fd_min, cold start
             drift_next = 3.0e38
         scarry = st.scarry
-        if sres is not None and config.stream_fast_path and not mult:
+        if sres is not None and config.stream_fast_path and bsc:
             # hints for the next fast solve: fresh or propagated row bounds,
             # the ED max inflated by this step's motion, and the two
             # wfd-decay rise bounds (global dwfd * fd_max and per-row ratio)
@@ -569,13 +615,15 @@ def make_batched_body(kp_t, mask_s, mask_t, fd, bbx_magnitude,
     host bools.  Every pair runs the iteration; the inactive ones keep
     their state.  Per pair: ED and the feature's blend with its
     CD-statistics penalty, the auction with the price and assignment warm
-    start, then the same tail as :func:`make_body`."""
+    start (or the NN / NNR matcher, which leaves prices and assignment as
+    they are), then the same tail as :func:`make_body`."""
     P, S = mask_s.shape
     T = kp_t.shape[1]
     dev = kp_t.device
     fd = fd.to(torch.float32)
     mult = config.feature in MULT_FEATURES
-    fd_min = fd_min_of(fd, mask_s, mask_t) if mult else None
+    km = config.correspondence == CorrespondenceType.KM
+    fd_min = fd_min_of(fd, mask_s, mask_t) if mult and km else None
     scale = torch.tensor([_f32(config.scale_factor * _f32(x))
                           for x in bbx_magnitude], device=dev)
     pair_mask = mask_s[:, :, None] & mask_t[:, None, :]
@@ -596,6 +644,8 @@ def make_batched_body(kp_t, mask_s, mask_t, fd, bbx_magnitude,
             cost = blend_fpfh(ed, fd, mask_s, mask_t,
                               torch.from_numpy(it_eff), st.rms, st.para1,
                               st.para2, scale, config.penalty_initial)
+        elif config.feature == FeatureType.NONE:
+            cost = blend_none(ed, mask_s, mask_t)
         else:
             cost = blend_bsc(ed, fd, mask_s, mask_t,
                              torch.from_numpy(it_eff), st.rms, st.fdm,
@@ -604,31 +654,44 @@ def make_batched_body(kp_t, mask_s, mask_t, fd, bbx_magnitude,
         ed_max = ed.masked_fill_(~pair_mask, 0.0).amax(dim=(-2, -1))
         del ed
         penalty = cost.penalty
-        dpen = torch.abs(penalty - st.pen_prev)
-        ares = auction_match(
-            cost.cd, penalty, mask_s, mask_t, eps_final=config.km_eps,
-            max_rounds=budget, rel_eps=config.auction_rel_eps,
-            p0=st.prices, price_uncertainty=st.price_unc + dpen[:, None],
-            quantize_bf16=config.auction_bf16,
-            use_round_kernel=config.auction_round_kernel,
-            n_phases=config.auction_phases, acol0=st.acol,
-            keep_slack_extra=dpen, active=active)
+        if km:
+            dpen = torch.abs(penalty - st.pen_prev)
+            ares = auction_match(
+                cost.cd, penalty, mask_s, mask_t, eps_final=config.km_eps,
+                max_rounds=budget, rel_eps=config.auction_rel_eps,
+                p0=st.prices, price_uncertainty=st.price_unc + dpen[:, None],
+                quantize_bf16=config.auction_bf16,
+                use_round_kernel=config.auction_round_kernel,
+                n_phases=config.auction_phases, acol0=st.acol,
+                keep_slack_extra=dpen, active=active)
+            match, cd_sel, energy = ares.match, ares.cd_sel, ares.energy
+            rounds, prices, acol, punc = (ares.rounds.to(dev), ares.prices,
+                                          ares.acol, ares.punc)
+        else:
+            match = (nn_match(cost.cd, penalty, mask_s, mask_t)
+                     if config.correspondence == CorrespondenceType.NN
+                     else nnr_match(cost.cd, mask_s, mask_t))
+            cd_sel = cost.cd.gather(-1, match.tgt_idx[..., None])[..., 0]
+            energy = torch.zeros((P,), dtype=torch.float32, device=dev)
+            rounds = torch.zeros((P,), dtype=torch.int64, device=dev)
+            prices, acol = st.prices, st.acol
+            punc = torch.zeros_like(st.price_unc)
         del cost
-        w, tgt_idx = ares.match.w, ares.match.tgt_idx
+        w, tgt_idx = match.w, match.tgt_idx
         cor = w.sum(dim=-1)
         fsel = fd.gather(-1, tgt_idx[..., None])[..., 0]
         rmse, fdm, fdstd = matched_stats(st.kps, kp_t, fsel, tgt_idx, w)
         iou = cor / torch.clamp(ns + nt - cor, min=1.0)
         tgt_pts = _rows_of(kp_t, tgt_idx)
         w_est = w
-        if config.confidence_weighting:
-            margin = torch.clamp(penalty[:, None] - ares.cd_sel, min=0.0)
+        if config.confidence_weighting and km:
+            margin = torch.clamp(penalty[:, None] - cd_sel, min=0.0)
             margin = torch.where(w > 0, margin, 0.0)
             msum = torch.clamp(margin.sum(dim=-1), min=1e-12)
             nw = torch.clamp(w.sum(dim=-1), min=1.0)
             w_est = margin * (nw / msum)[:, None]
         rt_step = estimate(st.kps, tgt_pts, w_est, dof=config.reg_dof)
-        for _ in range(config.robust_irls_rounds):
+        for _ in range(config.robust_irls_rounds if km else 0):
             resid = torch.linalg.norm(tf.apply(rt_step, st.kps) - tgt_pts,
                                       dim=-1)
             rscale = masked_median_log(resid, w_est > 0)
@@ -653,11 +716,10 @@ def make_batched_body(kp_t, mask_s, mask_t, fd, bbx_magnitude,
         m = st.metrics
         pa = torch.from_numpy(np.nonzero(active)[0]).to(dev)
         ia = torch.from_numpy(st.it[active]).to(dev)
-        for buf, val in ((m.energy, ares.energy), (m.rmse, rmse),
+        for buf, val in ((m.energy, energy), (m.rmse, rmse),
                          (m.rmse_after, rmse_after),
                          (m.cor, cor.to(torch.int64)), (m.iou, iou),
-                         (m.penalty, penalty),
-                         (m.rounds, ares.rounds.to(dev))):
+                         (m.penalty, penalty), (m.rounds, rounds)):
             buf[pa, ia] = val[pa].to(buf.dtype)
         flags = torch.stack([cor < config.min_cor, small]).cpu().numpy()
         converged = st.converged | (active & (flags[0] | flags[1]))
@@ -666,9 +728,14 @@ def make_batched_body(kp_t, mask_s, mask_t, fd, bbx_magnitude,
                                0.0).amax(dim=-1)
         d_ed = scale * max_disp
         i_eff = st.it + st.it_shift
-        if mult:
+        if fd_min is not None:
             drift_next = mult_drift(d_ed, torch.from_numpy(
                 i_eff.astype(np.float32)), fd_min)
+        elif mult:
+            # NN / NNR with the similarity blend: no measured fd_min
+            drift_next = torch.full_like(d_ed, 3.0e38)
+        elif config.feature == FeatureType.NONE:
+            drift_next = d_ed
         else:
             dwfd = torch.tensor([math.exp(-i / r) - math.exp(-(i + 1.0) / r)
                                  for i in i_eff], dtype=torch.float32,
@@ -678,9 +745,8 @@ def make_batched_body(kp_t, mask_s, mask_t, fd, bbx_magnitude,
                    fdm=fdm, fdstd=fdstd, para1=st.para1 + delta,
                    para2=st.para2 + delta,
                    matches=torch.where(w > 0, tgt_idx, -1),
-                   rmse_after=rmse_after, prices=ares.prices,
-                   acol=ares.acol, price_unc=ares.punc + drift_next[:, None],
-                   pen_prev=penalty)
+                   rmse_after=rmse_after, prices=prices, acol=acol,
+                   price_unc=punc + drift_next[:, None], pen_prev=penalty)
         act = torch.from_numpy(active).to(dev)
         return st._replace(
             **{k: torch.where(act.reshape((P,) + (1,) * (v.ndim - 1)), v,
@@ -711,6 +777,8 @@ def final_resolve(state: _State, kp_t, mask_s, mask_t, fd,
         if config.feature in MULT_FEATURES:
             cd = ed / torch.pow(torch.clamp(fd.to(torch.float32), min=1e-6),
                                 _f(wfd, dev))
+        elif config.feature == FeatureType.NONE:
+            cd = ed
         else:
             cd = _f(wed, dev) * ed + _f(wfd, dev) * fd.to(torch.float32)
         cd = torch.where(mask_s[:, None] & mask_t[None, :], cd, torch.inf)
@@ -796,17 +864,19 @@ def ghicp_register_chunked(kp_s, mask_s, kp_t, mask_t, fd,
                            init_transform=None, it_shift: float = 0.0,
                            device=None, iteration_callback=None,
                            stream=None) -> GHICPResult:
-    """Run the GH-ICP loop to convergence (or ``max_iterations``), then
-    the one-to-one final matching.  Inputs are moved to ``device`` (the
-    card by default).  ``stream`` (``fd`` None: packed BSC factors, or
-    FPFH/RoPS ``DescFeatures``) selects the streaming lane.  ``iteration_callback(it, kps, matches)``
-    gets host numpy copies after every iteration."""
+    """Run the GH-ICP loop to convergence (or ``max_iterations``), then,
+    after a KM matching, the one-to-one final matching.  Inputs are moved
+    to ``device`` (the card by default).  ``stream`` (``fd`` None: packed
+    BSC factors, FPFH/RoPS ``DescFeatures`` or ``NoFeatures``) selects the
+    streaming lane.  ``iteration_callback(it, kps, matches)`` gets host
+    numpy copies after every iteration."""
     state, kp_t, mask_s, mask_t, fd, bbx, stream = _loop(
         kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude, config,
         init_transform, it_shift, device, iteration_callback, stream)
     matches = state.matches
     final_rmse = float(state.rmse_after)
-    if config.final_resolve_rounds > 0:
+    if (config.final_resolve_rounds > 0
+            and config.correspondence == CorrespondenceType.KM):
         matches, _, rmse = final_resolve(state, kp_t, mask_s, mask_t, fd, bbx,
                                          config, stream)
         final_rmse = float(rmse)
@@ -820,8 +890,9 @@ def ghicp_register_batched(kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude,
     """One engine over P pairs on a leading axis: kp_s [P, S, 3], mask_s
     [P, S], kp_t [P, T, 3], mask_t [P, T], fd [P, S, T], bbx_magnitude
     [P], ``init_transform`` [P, 4, 4] (optional, with the shared schedule
-    offset ``it_shift``).  Both kernel flags are forced off, as in the JAX
-    package: every pair runs the XLA lane (its auction bids through K6).
+    offset ``it_shift``); the BSC and none features, with any matching.
+    Both kernel flags are forced off, as in the JAX package: every pair
+    runs the XLA lane (a KM auction bids through K6).
     Each iteration runs the body for every pair still going; a pair that
     has converged or reached ``max_iterations`` keeps its state.  No final
     matching.  Returns a :class:`GHICPResult` of [P] tensors."""

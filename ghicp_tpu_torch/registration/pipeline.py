@@ -3,16 +3,18 @@
 engine -> one-to-one final matching.
 
 Between stages the padded clouds are compacted into power-of-two buckets.
-KM (auction) matching with one of three features: BSC (FD the Hamming
-distance), FPFH (histograms over the whole downsampled cloud, FD their
-|Pearson| similarity) or RoPS (descriptors at the keypoints, FD the
-similarity of the whitened descriptors); on two lanes: the dense lane
-builds the [cap, cap] FD matrix; the streaming lane (``streaming_cost``
-"on", or "auto" above ``streaming_threshold`` keypoints) keeps the packed
-bits or the standardized descriptor rows as factors and never builds an
-[S, T] tensor.  RANSAC draws its candidates from the features (1 - FD for
-a similarity); only BSC gives it local frames.  The options the port does
-not carry yet raise ``NotImplementedError``.
+KM (auction), NN or reciprocal-NN matching with one of four features: BSC
+(FD the Hamming distance), FPFH (histograms over the whole downsampled
+cloud, FD their |Pearson| similarity), RoPS (descriptors at the keypoints,
+FD the similarity of the whitened descriptors) or none (classic ICP on the
+distances alone: a zero FD); on two lanes: the dense lane builds the
+[cap, cap] FD matrix; the streaming lane (``streaming_cost`` "on", or
+"auto" above ``streaming_threshold`` keypoints) keeps the packed bits or
+the standardized descriptor rows as factors (for none: no factors at all)
+and never builds an [S, T] tensor.  RANSAC draws its candidates from the
+features (1 - FD for a similarity); only BSC gives it local frames;
+feature none has no coarse init (start it with ``initial_transform``).
+The options the port does not carry yet raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,8 +26,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ghicp_tpu_torch.core.config import (CorrespondenceType, FeatureType,
-                                         GHICPConfig)
+from ghicp_tpu_torch.core.config import FeatureType, GHICPConfig
 from ghicp_tpu_torch.core.device import resolve_device
 from ghicp_tpu_torch.core.types import (PointCloud, bucket_size,
                                         cloud_bounds, compact_device)
@@ -36,7 +37,8 @@ from ghicp_tpu_torch.features.hamming import min_hamming_fd
 from ghicp_tpu_torch.features.rops import (rops_features,
                                            rops_similarity_matrix)
 from ghicp_tpu_torch.matching.ransac import ransac_coarse_align
-from ghicp_tpu_torch.ops.stream_kernel import (make_desc_features,
+from ghicp_tpu_torch.ops.stream_kernel import (NoFeatures,
+                                               make_desc_features,
                                                make_stream_features,
                                                stream_feature_candidates,
                                                subset_rows)
@@ -110,10 +112,6 @@ def _morton_order_rows(xyz: torch.Tensor, mask: torch.Tensor):
 
 
 def _check_supported(config: GHICPConfig) -> None:
-    if (config.feature not in (FeatureType.BSC, *MULT_FEATURES)
-            or config.correspondence != CorrespondenceType.KM):
-        raise NotImplementedError(
-            "the port runs KM with the BSC, FPFH and RoPS features only")
     if config.adaptive_keypoints:
         raise NotImplementedError("adaptive_keypoints is not ported yet")
     if config.identity_hypotheses > 1:
@@ -197,6 +195,11 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
                 stream = make_stream_features(fs.packed, ft.packed)
             else:
                 fd = min_hamming_fd(fs.packed, ft.packed, fs.n_bits)
+        elif config.feature == FeatureType.NONE:
+            if use_stream:
+                stream = NoFeatures(n_rows=cap)
+            else:
+                fd = torch.zeros((cap, cap), dtype=torch.float32, device=dev)
         elif config.feature == FeatureType.FPFH:
             radius = config.fpfh_radius or 3.0 * config.voxel_size
             k = max(config.fpfh_k, 24)
@@ -221,7 +224,8 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
     T0 = None if initial_transform is None else torch.as_tensor(
         np.asarray(initial_transform, np.float32), device=dev)
     it_shift = 0.0
-    if T0 is None and config.coarse_init == "ransac":
+    if (T0 is None and config.coarse_init == "ransac"
+            and config.feature != FeatureType.NONE):
         with _stage("coarse_init", timings, dev):
             tau = config.ransac_tau or 3.0 * config.voxel_size
             if use_stream:

@@ -134,3 +134,49 @@ def test_lane_gate(monkeypatch, fused, round_kernel, want):
     else:
         assert calls["fused_benefit"] == 3 and calls["auction_phase_gs"] == 0
         assert calls["top2_rows"] > 0
+
+
+def _none_pair(seed, n=128):
+    """tests/test_batched.py's pair: a rotated, shifted, noisy copy."""
+    rng = np.random.default_rng(seed)
+    tgt = rng.uniform(0, 10, (n, 3)).astype(np.float32)
+    theta = np.deg2rad(rng.uniform(3, 9))
+    R = np.array([[np.cos(theta), -np.sin(theta), 0],
+                  [np.sin(theta), np.cos(theta), 0], [0, 0, 1]], np.float32)
+    t = rng.uniform(-0.5, 0.5, 3).astype(np.float32)
+    src = ((tgt - t) @ R + rng.normal(0, 0.005, (n, 3))).astype(np.float32)
+    return src, tgt
+
+
+@pytest.mark.parametrize("corr", [CorrespondenceType.NNR,
+                                  CorrespondenceType.KM])
+def test_batched_none_matches_jax_and_single_pairs(corr):
+    """tests/test_batched.py's check on the port, [3, 128, 128], feature
+    none: the batch against the JAX package's vmapped engine and against
+    each pair alone (on the kernel lane for KM, the XLA lane for NNR),
+    each recovering its pair."""
+    cfg = GHICPConfig(feature=FeatureType.NONE, correspondence=corr,
+                      estimated_overlap=0.9, max_iterations=10,
+                      auction_max_rounds=500)
+    pairs = [_none_pair(s) for s in range(3)]
+    kp_s = np.stack([p[0] for p in pairs])
+    kp_t = np.stack([p[1] for p in pairs])
+    masks = np.ones((3, 128), bool)
+    fd = np.zeros((3, 128, 128), np.float32)
+    bbx = np.full((3,), 30.0, np.float32)
+    J = jgh.ghicp_register_batched(*(jnp.asarray(x) for x in (
+        kp_s, masks, kp_t, masks, fd, bbx)), cfg)
+    M = tgh.ghicp_register_batched(kp_s, masks, kp_t, masks, fd, bbx,
+                                   _port(cfg), device="cpu")
+    np.testing.assert_array_equal(M.iterations.numpy(),
+                                  np.asarray(J.iterations))
+    np.testing.assert_array_equal(M.metrics.cor.numpy(),
+                                  np.asarray(J.metrics.cor))
+    np.testing.assert_allclose(M.transform.numpy(), np.asarray(J.transform),
+                               atol=1e-4)
+    for i in range(3):
+        single = tgh.ghicp_register(kp_s[i], masks[i], kp_t[i], masks[i],
+                                    fd[i], 30.0, _port(cfg), device="cpu")
+        np.testing.assert_allclose(M.transform[i].numpy(),
+                                   single.transform.numpy(), atol=5e-3)
+        assert float(M.final_rmse[i]) < 0.1

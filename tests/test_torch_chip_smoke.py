@@ -43,12 +43,17 @@ def test_compare_phase_at_small_size(monkeypatch):
                                          "fused_benefit_mult",
                                          "auction_warm_fused_mult",
                                          "nms_exact", "stream_sweep",
-                                         "top2_rows", "stream_sweep_mult"]
+                                         "top2_rows", "stream_sweep_mult",
+                                         "stream_sweep_col",
+                                         "stream_sweep_mult_col",
+                                         "stream_sweep_none",
+                                         "stream_sweep_none_col"]
     for r in rows:
         assert r["max_abs_err"] == 0.0
         assert r["bound_ms"] > 0
         assert r["bound_by"] == ("operations" if r["name"] in (
-            "nms_exact", "stream_sweep") else "bytes")
+            "nms_exact", "stream_sweep", "stream_sweep_col",
+            "stream_sweep_none", "stream_sweep_none_col") else "bytes")
         if r["name"] == "top2_rows":
             assert r["library_ms"] > 0
         else:
@@ -69,3 +74,59 @@ def test_no_card_no_result():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _record():
+    d = np.load(chip_smoke.ENGINE_RECORD)
+    seen = {k: d[k].copy() for k in ("kp_s", "mask_s", "kp_t", "mask_t",
+                                      "bbx", "init_transform", "it_shift")}
+    return seen, d["transform"]
+
+
+@pytest.mark.parametrize("case", ["dense", "moved keypoint", "other lane",
+                                  "other seed"])
+def test_none_km_record_check(case):
+    """Phase 8's hold of a none + KM run to the JAX package's pose: the
+    record's own inputs and card pose pass on the dense lane; a moved
+    valid keypoint fails as a stale record, the dense pose fails against
+    the streaming lane's JAX pose, and another seed is not held."""
+    seen, T_card = _record()
+    lane, seed = "dense", chip_smoke.RECORD_SEED
+    if case in ("moved keypoint", "other seed"):
+        seen["kp_s"][int(np.flatnonzero(seen["mask_s"])[-1])] += 1e-3
+    if case == "other lane":
+        lane = "streaming"
+    if case == "other seed":
+        seed += 1
+    if case in ("dense", "other seed"):
+        chip_smoke.hold_to_jax_record(case, lane, seen, T_card, seed)
+        return
+    with pytest.raises(SystemExit) as e:
+        chip_smoke.hold_to_jax_record(case, lane, seen, T_card, seed)
+    want = "differ from" if case == "moved keypoint" else "streaming pose"
+    assert want in str(e.value)
+
+
+def test_engine_inputs_records_the_engine_call():
+    import dataclasses
+
+    import ghicp_tpu_torch.registration.pipeline as tpl
+    from ghicp_tpu_torch.core.config import (CorrespondenceType,
+                                             FeatureType, GHICPConfig)
+    rng = np.random.default_rng(3)
+    kp = rng.uniform(0, 5, (64, 3)).astype(np.float32)
+    m = np.ones(64, bool)
+    cfg = dataclasses.replace(GHICPConfig(), feature=FeatureType.NONE,
+                              correspondence=CorrespondenceType.NN,
+                              max_iterations=2)
+    engine, seen = tpl.ghicp_register_chunked, {}
+    with chip_smoke.engine_inputs(torch, seen):
+        assert tpl.ghicp_register_chunked is not engine
+        tpl.ghicp_register_chunked(kp, m, kp + 0.01, m,
+                                   np.zeros((64, 64), np.float32), 7.5, cfg,
+                                   it_shift=2.0, device="cpu")
+    assert tpl.ghicp_register_chunked is engine
+    np.testing.assert_array_equal(seen["kp_s"], kp)
+    np.testing.assert_array_equal(seen["kp_t"], kp + 0.01)
+    np.testing.assert_array_equal(seen["init_transform"], np.eye(4))
+    assert seen["bbx"] == np.float32(7.5) and seen["it_shift"] == 2.0

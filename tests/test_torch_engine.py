@@ -193,3 +193,199 @@ def test_xla_lane_mult_blend_matches_jax(problem):
     rot, tr = transform_error(got.transform.numpy(),
                               np.asarray(want.transform))
     assert rot < 0.1 and tr < 0.02, (rot, tr)
+
+
+# ---------------------------------------------------------------------------
+# NN / NNR and feature "none" on the dense lanes
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def small():
+    """S = T = 512 from the port's problem generator; the last 16 source
+    slots masked."""
+    from ghicp_tpu_torch.io.synthetic import registration_problem
+    src, tgt, fd, _, _, T_gt = registration_problem(512, 512, seed=13,
+                                                    rot_deg=6.0)
+    ms, mt = np.ones(512, bool), np.ones(512, bool)
+    ms[-16:] = False
+    return src, tgt, fd, ms, mt, T_gt
+
+
+def _no_final_resolve(monkeypatch):
+    import ghicp_tpu_torch.registration.ghicp as tgh
+
+    def refuse(*a, **k):
+        raise AssertionError("final_resolve ran")
+    monkeypatch.setattr(tgh, "final_resolve", refuse)
+
+
+@pytest.mark.parametrize("feature", [FeatureType.BSC, FeatureType.NONE])
+@pytest.mark.parametrize("corr", [CorrespondenceType.NN,
+                                  CorrespondenceType.NNR])
+def test_dense_nn_nnr_matches_jax(small, feature, corr, monkeypatch):
+    """NN / NNR (the XLA lane with the dense matchers; no kernel lane, no
+    auction) against the JAX package, twelve iterations with convergence
+    off: cor equal every iteration, the pose within 1e-4, energy and
+    rounds 0, no final resolve (the verdict reads the last iteration)."""
+    src, tgt, fd, ms, mt, T_gt = small
+    if feature == FeatureType.NONE:
+        fd = np.zeros_like(fd)
+    cfg = dataclasses.replace(BASE, feature=feature, correspondence=corr,
+                              max_iterations=12, converge_translation=0.0,
+                              converge_rotation=0.0)
+    want = jgh.ghicp_register_chunked(
+        jnp.asarray(src), jnp.asarray(ms), jnp.asarray(tgt), jnp.asarray(mt),
+        jnp.asarray(fd), jnp.float32(40.0), cfg)
+    _no_final_resolve(monkeypatch)
+    got = ghicp_register_chunked(src, ms, tgt, mt, fd, 40.0,
+                                 config_from_dict(dataclasses.asdict(cfg)),
+                                 device="cpu")
+    np.testing.assert_array_equal(got.metrics.cor.numpy(),
+                                  np.asarray(want.metrics.cor))
+    np.testing.assert_allclose(got.transform.numpy(),
+                               np.asarray(want.transform), atol=1e-4)
+    assert not got.metrics.energy.any() and not got.metrics.rounds.any()
+    assert got.final_rmse == float(got.metrics.rmse_after[11])
+    rot, tr = transform_error(got.transform.numpy(), T_gt)
+    assert rot < 0.5 and tr < 0.05, (rot, tr)
+
+
+def test_dense_none_km_kernel_lane_matches_jax(small, monkeypatch):
+    """Feature none with KM on the kernel lane (K1 with W_FD = 0 and its
+    statistics on every iteration, then K2; here their plain versions)
+    against the JAX package with its fused and GS kernels in interpret
+    mode: cor every iteration, the penalty max(mean ED, 1), the pose, the
+    final resolve's matching on an ED cost."""
+    import ghicp_tpu_torch.registration.ghicp as tgh
+    src, tgt, fd, ms, mt, _ = small
+    fd = np.zeros_like(fd)
+    cfg = dataclasses.replace(BASE, feature=FeatureType.NONE,
+                              max_iterations=6, converge_translation=0.0,
+                              converge_rotation=0.0)
+    old = (jgh._FUSED_INTERPRET, jau._KERNEL_INTERPRET)
+    jgh._FUSED_INTERPRET = jau._KERNEL_INTERPRET = True
+    try:
+        want = jgh.ghicp_register_chunked(
+            jnp.asarray(src), jnp.asarray(ms), jnp.asarray(tgt),
+            jnp.asarray(mt), jnp.asarray(fd), jnp.float32(40.0), cfg)
+    finally:
+        jgh._FUSED_INTERPRET, jau._KERNEL_INTERPRET = old
+    stats = []
+    fb = tgh.fused_benefit
+    monkeypatch.setattr(tgh, "fused_benefit", lambda *a, **k: (
+        stats.append(k["with_stats"]), fb(*a, **k))[1])
+    got = ghicp_register_chunked(src, ms, tgt, mt, fd, 40.0,
+                                 config_from_dict(dataclasses.asdict(cfg)),
+                                 device="cpu")
+    # K1 on every iteration, each with its statistics (the none penalty
+    # reads the mean ED on every iteration)
+    assert stats == [True] * 6
+    np.testing.assert_array_equal(got.metrics.cor.numpy(),
+                                  np.asarray(want.metrics.cor))
+    np.testing.assert_allclose(got.metrics.penalty.numpy(),
+                               np.asarray(want.metrics.penalty), rtol=1e-5)
+    assert float(got.metrics.penalty[0]) >= 1.0
+    np.testing.assert_allclose(got.transform.numpy(),
+                               np.asarray(want.transform), atol=1e-4)
+    np.testing.assert_array_equal(got.matches.numpy(),
+                                  np.asarray(want.matches))
+    np.testing.assert_allclose(got.final_rmse, float(want.final_rmse),
+                               rtol=1e-5)
+
+
+def test_none_km_never_takes_the_warm_kernel(problem, monkeypatch):
+    """At S = T = 1024 the BSC lane takes K3 from the third iteration on
+    (test_whole_engine_mult_blend, test_one_iteration_from_identical_
+    state); feature none never does: K1 + K2 on every iteration, as the
+    JAX package's gate has it."""
+    import ghicp_tpu_torch.registration.ghicp as tgh
+    src, tgt, fd, _, _, _ = problem
+    calls = []
+    monkeypatch.setattr(tgh, "auction_warm_fused",
+                        lambda *a, **k: calls.append(1))
+    ones = np.ones(S, bool)
+    cfg = dataclasses.replace(BASE, feature=FeatureType.NONE,
+                              max_iterations=4, converge_translation=0.0,
+                              converge_rotation=0.0)
+    got = ghicp_register_chunked(src, ones, tgt, ones, np.zeros_like(fd),
+                                 40.0, _port_cfg(cfg), device="cpu")
+    assert int(got.iterations) == 4 and calls == []
+
+
+def _port_cfg(cfg):
+    return config_from_dict(dataclasses.asdict(cfg))
+
+
+def test_blend_weights_of_each_feature():
+    from ghicp_tpu_torch.core.config import FeatureType as TF
+    from ghicp_tpu_torch.registration.ghicp import blend_weights
+    cfg = _port_cfg(BASE)
+    assert blend_weights(4.0, dataclasses.replace(cfg, feature=TF.NONE)) \
+        == (1.0, 0.0)
+    assert blend_weights(3.0, dataclasses.replace(cfg, feature=TF.FPFH)) \
+        == (1.0, 0.25)
+    wed, wfd = blend_weights(0.0, cfg)
+    assert (wed, wfd) == (0.0, 1.0)
+
+
+@pytest.mark.parametrize("start_it", [0, 2])
+def test_nn_one_iteration_from_identical_state(small, start_it):
+    """One NN iteration from the JAX engine's state: the plain Kabsch on
+    the matched rows (no margin weights, no IRLS: those serve the KM gate
+    only), the state's prices and assignment untouched, and the none
+    lane's price drift d_ED."""
+    src, tgt, _, ms, mt, _ = small
+    fd = np.zeros((512, 512), np.float32)
+    cfg = dataclasses.replace(BASE, feature=FeatureType.NONE,
+                              correspondence=CorrespondenceType.NN,
+                              max_iterations=6)
+    assert cfg.confidence_weighting and cfg.robust_irls_rounds > 0
+    body_j = jax.jit(jgh._make_body(jnp.asarray(tgt), jnp.asarray(ms),
+                                    jnp.asarray(mt), jnp.asarray(fd),
+                                    jnp.float32(40.0), cfg, LOCAL, 512))
+    st = jgh._initial_state(jnp.asarray(src), 512, cfg)
+    for _ in range(start_it):
+        st = body_j(st)
+    want = body_j(st)
+    body_t = make_body(torch.from_numpy(tgt), torch.from_numpy(ms),
+                       torch.from_numpy(mt), torch.from_numpy(fd), 40.0,
+                       _port_cfg(cfg))
+    got = body_t(state_from_numpy(_to_numpy(st), "cpu", cfg.max_iterations))
+    i = start_it
+    assert int(got.metrics.cor[i]) == int(np.asarray(want.metrics.cor)[i])
+    np.testing.assert_allclose(got.rt.numpy(), np.asarray(want.rt),
+                               atol=1e-5)
+    # d_ED = scale * the largest keypoint step: steps of millimetres,
+    # each package's Kabsch a few ulps from the other's
+    np.testing.assert_allclose(got.price_unc.numpy(),
+                               np.asarray(want.price_unc), rtol=1e-4)
+    assert torch.equal(got.acol, torch.from_numpy(
+        np.asarray(st.acol).astype(np.int64)))
+
+
+def test_none_km_one_iteration_from_identical_state(small, interpret):
+    """A warm none + KM iteration on the kernel lane from the JAX engine's
+    state after two (its fused and GS kernels in interpret mode): cor, the
+    pose, the penalty max(mean ED, 1) and the next warm start's price
+    uncertainty, whose drift term is d_ED alone for this blend."""
+    src, tgt, _, ms, mt, _ = small
+    fd = np.zeros((512, 512), np.float32)
+    cfg = dataclasses.replace(BASE, feature=FeatureType.NONE)
+    body_j = jax.jit(jgh._make_body(jnp.asarray(tgt), jnp.asarray(ms),
+                                    jnp.asarray(mt), jnp.asarray(fd),
+                                    jnp.float32(40.0), cfg, LOCAL, 512))
+    st = jgh._initial_state(jnp.asarray(src), 512, cfg)
+    st = body_j(body_j(st))
+    want = body_j(st)
+    body_t = make_body(torch.from_numpy(tgt), torch.from_numpy(ms),
+                       torch.from_numpy(mt), torch.from_numpy(fd), 40.0,
+                       _port_cfg(cfg))
+    got = body_t(state_from_numpy(_to_numpy(st), "cpu", cfg.max_iterations))
+    assert int(got.metrics.cor[2]) == int(np.asarray(want.metrics.cor)[2])
+    np.testing.assert_allclose(got.rt.numpy(), np.asarray(want.rt),
+                               atol=1e-5)
+    np.testing.assert_allclose(float(got.pen_prev), float(want.pen_prev),
+                               rtol=1e-5)
+    np.testing.assert_allclose(got.price_unc.numpy(),
+                               np.asarray(want.price_unc), rtol=1e-4,
+                               atol=1e-6)

@@ -1,12 +1,15 @@
 """The JAX package's accuracy record on the bench pair with the dense FPFH
 and RoPS settings that ``chip_smoke.py`` runs the port at (its phase 7),
-and RANSAC's odds on these lanes.  The reference beside which the card's
-poses are read (accuracy only: the JAX package runs its XLA lane on the
-CPU here, so no time it prints is a device time).
+RANSAC's odds on these lanes, and both packages' dense and streaming
+engines on the engine inputs of phase 8's none + KM runs (chip_smoke.py
+holds the card's poses to the JAX poses printed here).  The reference
+beside which the card's poses are read (accuracy only: the JAX package
+runs its XLA lane on the CPU here, so no time it prints is a device
+time).
 
 Minutes a run on a CPU, hence ``slow``:
 
-    JAX_PLATFORMS=cpu python -m pytest -s -m slow tests/test_torch_jax_record.py
+    JAX_PLATFORMS=cpu python -m pytest -n 0 -s -m slow tests/test_torch_jax_record.py
 
 Each registration prints one ``JAX record`` line (keypoints, iterations,
 pose error); the RANSAC test one ``RANSAC`` line a seed and package.  With
@@ -15,6 +18,7 @@ pairs only, and at the default 2^17 hypotheses a seed may find no
 consensus: the record holds the 2^20 runs to the bound."""
 import dataclasses
 import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -89,3 +93,121 @@ def test_ransac_seeds_on_the_same_candidates(feature, monkeypatch):
                 feature=feature.value, package=name, seed=seed,
                 inliers=inl, rot_err_deg=rot, t_err_m=tr)), flush=True)
     assert len(found) == 8
+
+
+# the engine inputs of chip_smoke.py phase 8's dense none + KM run (bench
+# pair, NMS 0.5 m, from its perturbed truth), written on the card by
+# ``chip_smoke.py --save-engine-inputs``; chip_smoke.py's JAX_NONE_KM holds
+# the JAX poses these tests print
+NONE_KM_INPUTS = pathlib.Path(__file__).parent / "data" / "bench_none_km.npz"
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("converge", [True, False])
+def test_jax_none_km_on_the_port_keypoints(converge):
+    """Both packages' dense engines, on a CPU, on the keypoints the port
+    took on the card (6605 / 6533 in 8192 slots), feature none + KM from
+    the truth perturbed by 2 deg and (0.3, -0.2, 0.05) m: with the
+    convergence test, and 60 iterations without it.  No final resolve
+    (the pose does not depend on it; its 3000 rounds at 8192^2 take long
+    on a CPU).  Prints one ``JAX record`` line a package.  Both stall a
+    third of a metre from the truth (the complete one-to-one matching of a
+    partial-overlap pair), and their poses agree within 0.05 deg / 0.03 m:
+    the port takes its kernel lane here (K1 and the Gauss-Seidel phase,
+    as on the card) and the JAX package its XLA lane (Jacobi rounds), two
+    auctions that break ties apart, 2 cm apart after 60 iterations."""
+    import jax.numpy as jnp
+
+    import ghicp_tpu.registration.ghicp as jgh
+    from ghicp_tpu_torch.interop import config_from_dict
+    from ghicp_tpu_torch.registration.ghicp import ghicp_register_chunked
+    d = np.load(NONE_KM_INPUTS)
+    cfg = dataclasses.replace(BENCH, feature=FeatureType.NONE,
+                              final_resolve_rounds=0)
+    if not converge:
+        cfg = dataclasses.replace(cfg, converge_translation=0.0,
+                                  converge_rotation=0.0)
+    fd = np.zeros((len(d["kp_s"]), len(d["kp_t"])), np.float32)
+    args = [d[k] for k in ("kp_s", "mask_s", "kp_t", "mask_t")]
+    J = jgh.ghicp_register_chunked(
+        *(jnp.asarray(x) for x in args), jnp.asarray(fd),
+        jnp.float32(d["bbx"]), cfg,
+        init_transform=jnp.asarray(d["init_transform"]))
+    M = ghicp_register_chunked(
+        *args, fd, float(d["bbx"]),
+        config_from_dict(dataclasses.asdict(cfg)),
+        init_transform=d["init_transform"], device="cpu")
+    poses = {}
+    for name, T_est, its, cor in (
+            ("JAX", np.asarray(J.transform), int(J.iterations),
+             np.asarray(J.metrics.cor)),
+            ("port", M.transform.numpy(), int(M.iterations),
+             M.metrics.cor.numpy())):
+        rot, tr = transform_error(T_est, d["T_gt"])
+        poses[name] = T_est
+        assert tr > 0.3, (name, rot, tr)
+        print("JAX record", json.dumps(dict(
+            package=name, feature="none", correspondence="km",
+            start="perturbed truth", converge=converge, iterations=its,
+            cor=cor[:its].tolist(), rot_err_deg=rot, t_err_m=tr,
+            transform=T_est.tolist())), flush=True)
+    rot, tr = transform_error(poses["port"], poses["JAX"])
+    assert rot < 0.05 and tr < 0.03, (rot, tr)
+
+
+@pytest.mark.slow
+def test_streaming_none_km_on_the_port_keypoints():
+    """Both packages' streaming lanes, on a CPU, on the same keypoints and
+    start as ``test_jax_none_km_on_the_port_keypoints`` (the JAX package
+    through ``stream_sweep_ref`` with its zero bit factors, the port
+    through the plain K5-none).  Prints one ``JAX record`` line a package
+    and each one's distance from the JAX package's dense pose; holds the
+    two streaming poses to the lane criterion between them, 0.5 deg /
+    0.1 m (tests/test_stream_engine.py:53-54)."""
+    import jax.numpy as jnp
+
+    import ghicp_tpu.registration.ghicp as jgh
+    from ghicp_tpu.ops.stream_kernel import StreamFeatures
+    from ghicp_tpu_torch.interop import config_from_dict
+    from ghicp_tpu_torch.ops.stream_kernel import NoFeatures
+    from ghicp_tpu_torch.registration.ghicp import ghicp_register_chunked
+    d = np.load(NONE_KM_INPUTS)
+    cap = len(d["kp_s"])
+    cfg = dataclasses.replace(BENCH, feature=FeatureType.NONE,
+                              streaming_cost="on", final_resolve_rounds=0)
+    args = [d[k] for k in ("kp_s", "mask_s", "kp_t", "mask_t")]
+    jargs = [jnp.asarray(x) for x in args]
+    # the JAX pipeline's none factors (pipeline.py:383-391)
+    zeros = StreamFeatures(fs=jnp.zeros((1, cap, 128), jnp.bfloat16),
+                           ft=jnp.zeros((cap, 128), jnp.bfloat16),
+                           na=jnp.zeros((1, cap)), nb=jnp.zeros((cap,)))
+    J = jgh.ghicp_register_chunked(
+        *jargs, None, jnp.float32(d["bbx"]), cfg,
+        init_transform=jnp.asarray(d["init_transform"]), stream=zeros)
+    D = jgh.ghicp_register_chunked(
+        *jargs, jnp.zeros((cap, cap), jnp.float32), jnp.float32(d["bbx"]),
+        dataclasses.replace(cfg, streaming_cost="auto"),
+        init_transform=jnp.asarray(d["init_transform"]))
+    M = ghicp_register_chunked(
+        *args, None, float(d["bbx"]),
+        config_from_dict(dataclasses.asdict(cfg)),
+        init_transform=d["init_transform"], device="cpu",
+        stream=NoFeatures(cap))
+    dense = np.asarray(D.transform)
+    poses = {}
+    for name, T_est, its, cor in (
+            ("JAX", np.asarray(J.transform), int(J.iterations),
+             np.asarray(J.metrics.cor)),
+            ("port", M.transform.numpy(), int(M.iterations),
+             M.metrics.cor.numpy())):
+        rot, tr = transform_error(T_est, d["T_gt"])
+        rot_d, tr_d = transform_error(T_est, dense)
+        poses[name] = T_est
+        print("JAX record", json.dumps(dict(
+            package=name, lane="streaming", feature="none",
+            correspondence="km", start="perturbed truth", iterations=its,
+            cor=cor[:its].tolist(), rot_err_deg=rot, t_err_m=tr,
+            from_jax_dense_deg=rot_d, from_jax_dense_m=tr_d,
+            transform=T_est.tolist())), flush=True)
+    rot, tr = transform_error(poses["port"], poses["JAX"])
+    assert rot < 0.5 and tr < 0.1, (rot, tr)

@@ -240,3 +240,67 @@ def test_mult_blend_streaming_engine_matches_jax(standardize):
     mm = got.matches.numpy()
     mm = mm[mm >= 0]
     assert len(np.unique(mm)) == len(mm)
+
+
+# ---------------------------------------------------------------------------
+# NN / NNR and feature "none" on the streaming lane
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("feature,corr", [
+    (FeatureType.BSC, CorrespondenceType.NN),
+    (FeatureType.BSC, CorrespondenceType.NNR),
+    (FeatureType.NONE, CorrespondenceType.NN),
+    (FeatureType.NONE, CorrespondenceType.NNR),
+    (FeatureType.NONE, CorrespondenceType.KM)])
+def test_streaming_nn_nnr_none_match_jax(feature, corr, monkeypatch):
+    """Eight iterations from identity, convergence off, against the JAX
+    package's streaming lane (its ``stream_sweep_ref``): cor and rounds
+    equal every iteration, the pose within 1e-4.  NN / NNR: one sweep an
+    iteration (K5, NNR with its column side), rounds 0, no final resolve.
+    None + KM: the matrix-free auction on the none lane, never the BSC
+    carry fast path."""
+    import ghicp_tpu_torch.registration.ghicp as tgh
+    from ghicp_tpu.ops.stream_kernel import StreamFeatures
+    from ghicp_tpu_torch.ops.stream_kernel import NoFeatures
+    src, tgt, _, bits_s, bits_t, T_gt = registration_problem(S, T, seed=13,
+                                                             rot_deg=6.0)
+    ms, mt = np.ones(S, bool), np.ones(T, bool)
+    ms[-16:] = False
+    if feature == FeatureType.BSC:
+        jf = jax_feats(packed_s=jax_pack_bits(jnp.asarray(bits_s)),
+                       packed_t=jax_pack_bits(jnp.asarray(bits_t)),
+                       n_bits=441)
+        feats = stream_features_from_numpy(
+            np.asarray(jf.fs), np.asarray(jf.ft), np.asarray(jf.na),
+            np.asarray(jf.nb))
+    else:
+        # the JAX pipeline's none factors: zero bits, FD identically 0
+        jf = StreamFeatures(fs=jnp.zeros((1, S, 128), jnp.bfloat16),
+                            ft=jnp.zeros((T, 128), jnp.bfloat16),
+                            na=jnp.zeros((1, S)), nb=jnp.zeros((T,)))
+        feats = NoFeatures(S)
+    cfg = dataclasses.replace(BASE, feature=feature, correspondence=corr,
+                              max_iterations=8, converge_translation=0.0,
+                              converge_rotation=0.0)
+    want = jgh.ghicp_register_chunked(
+        jnp.asarray(src), jnp.asarray(ms), jnp.asarray(tgt), jnp.asarray(mt),
+        None, jnp.float32(40.0), cfg, stream=jf)
+    resolves = []
+    fr = tgh.final_resolve
+    monkeypatch.setattr(tgh, "final_resolve", lambda *a, **k: (
+        resolves.append(1), fr(*a, **k))[1])
+    got = ghicp_register_chunked(src, ms, tgt, mt, None, 40.0,
+                                 config_from_dict(dataclasses.asdict(cfg)),
+                                 device="cpu", stream=feats)
+    np.testing.assert_array_equal(got.metrics.cor.numpy(),
+                                  np.asarray(want.metrics.cor))
+    np.testing.assert_array_equal(got.metrics.rounds.numpy(),
+                                  np.asarray(want.metrics.rounds))
+    np.testing.assert_allclose(got.transform.numpy(),
+                               np.asarray(want.transform), atol=1e-4)
+    assert int(got.metrics.fast.sum()) == 0
+    km = corr == CorrespondenceType.KM
+    assert len(resolves) == int(km)
+    assert bool(got.metrics.rounds.any()) == km
+    rot, tr = transform_error(got.transform.numpy(), T_gt)
+    assert rot < 0.5 and tr < 0.05, (rot, tr)

@@ -1,7 +1,8 @@
 """The streaming sweep (kernel K5's plain version), the matched-pair gathers
 and the RANSAC candidate scan against the JAX package's
-``ops/stream_kernel.py`` on the same inputs (BSC, V = 4 variants), the JAX
-sweep kernel running in interpret mode."""
+``ops/stream_kernel.py`` on the same inputs (BSC, V = 4 variants; the
+similarity and none lanes; the column side of each), the JAX sweep kernel
+running in interpret mode."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -16,7 +17,8 @@ from ghicp_tpu.ops.stream_kernel import stream_sweep_ref as jax_sweep_ref
 from ghicp_tpu_torch.features.bsc import pack_bits
 from ghicp_tpu_torch.interop import (desc_features_from_numpy,
                                      stream_features_from_numpy)
-from ghicp_tpu_torch.ops.stream_kernel import (make_desc_features,
+from ghicp_tpu_torch.ops.stream_kernel import (NoFeatures,
+                                               make_desc_features,
                                                make_stream_features,
                                                popcount32, stream_selected,
                                                stream_feature_candidates,
@@ -121,13 +123,186 @@ def test_sweep_is_tile_independent(problem):
         assert torch.equal(getattr(c, k), getattr(a, k)[idx]), k
 
 
-def test_sweep_raises_for_lanes_not_ported(problem):
-    p = problem
-    args = (_t(p["kp_s"]), _t(p["kp_t"]), p["tf"], _t(p["ms"]), _t(p["mt"]),
-            _t(p["prices"]), _t(p["acol"]), WED, WFD, SCALE)
-    for kw in ("no_features", "col_side"):
-        with pytest.raises(NotImplementedError):
-            stream_sweep(*args, **{kw: True})
+# ---------------------------------------------------------------------------
+# the none lane and the column side (every lane)
+# ---------------------------------------------------------------------------
+
+DUP = (slice(200, 220), slice(10, 30))   # source rows 200-219 copy 10-29
+
+
+@pytest.fixture(scope="module")
+def col_problem():
+    """S = C = 256 with planted exact column ties: source rows 200-219
+    duplicate rows 10-29 (coordinates, BSC bits, descriptors), so a column
+    whose least CD lies on one of them has it at two rows; the lower one
+    must win."""
+    S = C = 256
+    rng = np.random.default_rng(11)
+    kp_s = rng.uniform(-10, 10, (S, 3)).astype(np.float32)
+    kp_t = rng.uniform(-10, 10, (C, 3)).astype(np.float32)
+    kp_s[DUP[0]] = kp_s[DUP[1]]
+    bits_s = (rng.random((4, S, 441)) < 0.3).astype(np.float32)
+    bits_s[:, DUP[0]] = bits_s[:, DUP[1]]
+    bits_t = (rng.random((1, C, 441)) < 0.3).astype(np.float32)
+    desc_t = rng.gamma(2.0, 5.0, (C, 33)).astype(np.float32)
+    desc_s = (desc_t[rng.integers(0, C, S)]
+              + rng.normal(0, 2.0, (S, 33))).astype(np.float32)
+    desc_s[DUP[0]] = desc_s[DUP[1]]
+    ms, mt = rng.random(S) < 0.9, rng.random(C) < 0.9
+    ms[DUP[0]] = ms[DUP[1]] = True
+    prices = rng.uniform(0, 3, C).astype(np.float32)
+    acol = np.where(rng.random(S) < 0.7, rng.integers(0, C, S),
+                    -1).astype(np.int32)
+    jb = jax_feats(packed_s=jax_pack_bits(jnp.asarray(bits_s)),
+                   packed_t=jax_pack_bits(jnp.asarray(bits_t)), n_bits=441)
+    jd = jax_feats(desc_s=jnp.asarray(desc_s), desc_t=jnp.asarray(desc_t))
+    lanes = {
+        "hamming": (jb, stream_features_from_numpy(
+            np.asarray(jb.fs), np.asarray(jb.ft), np.asarray(jb.na),
+            np.asarray(jb.nb)), WED, WFD, {}),
+        "similarity": (jd, desc_features_from_numpy(
+            np.asarray(jd.fs), np.asarray(jd.ft), 33), 1.0, K_MULT,
+            dict(mult_blend=True)),
+        "none": (jb, NoFeatures(S), WED, 0.0, dict(no_features=True)),
+    }
+    return dict(kp_s=kp_s, kp_t=kp_t, ms=ms, mt=mt, prices=prices,
+                acol=acol, bits_s=bits_s, bits_t=bits_t, lanes=lanes)
+
+
+def _col_args(p, lane):
+    jf, tf, wed, wfd, kw = p["lanes"][lane]
+    jargs = (jnp.asarray(p["kp_s"]), jnp.asarray(p["kp_t"]), jf,
+             jnp.asarray(p["ms"]), jnp.asarray(p["mt"]),
+             jnp.asarray(p["prices"]), jnp.asarray(p["acol"]), wed, wfd,
+             SCALE)
+    targs = (_t(p["kp_s"]), _t(p["kp_t"]), tf, _t(p["ms"]), _t(p["mt"]),
+             _t(p["prices"]), _t(p["acol"]), wed, wfd, SCALE)
+    # the port takes the none lane from the type of its features
+    return jargs, targs, kw, {k: v for k, v in kw.items()
+                              if k != "no_features"}
+
+
+LANES = ["hamming", "similarity", "none"]
+
+
+@pytest.mark.parametrize("lane", LANES)
+def test_sweep_col_side_matches_jax_ref(col_problem, lane):
+    """Every lane with ``col_side`` (the none lane with ``no_features``
+    on the JAX side, ``NoFeatures`` on the port's) against ``stream_sweep_ref``: v1/v2/vsel within the file's tolerances
+    (rtol 1e-6 on the Hamming lane, whose CD the integer FD dominates;
+    rtol 1e-5 and atol 5e-5 where the nearest pair's norm-expansion ED, an
+    absolute accuracy, is most of it, and the similarity's dot product
+    sums in another order there); cmin within the same tolerances (the
+    same nearest pairs); crow
+    equal on every column whose two least CDs differ by more than 1e-5
+    relative and on the planted exact ties, which the lower row wins."""
+    p = col_problem
+    jargs, targs, jkw, kw = _col_args(p, lane)
+    want = jax_sweep_ref(*jargs, tc=128, col_side=True, **jkw)
+    got = stream_sweep(*targs, col_side=True, **kw)
+    tol = (dict(rtol=1e-6) if lane == "hamming"
+           else dict(rtol=1e-5, atol=5e-5))
+    for k in ("v1", "v2", "vsel"):
+        np.testing.assert_allclose(getattr(got, k).numpy(),
+                                   np.asarray(getattr(want, k)), **tol)
+    assert float(got.cnt) == float(want.cnt)
+    for k in ("cd_sum", "cd_sumsq", "cd_max", "ed_max", "fd_max"):
+        np.testing.assert_allclose(float(getattr(got, k)),
+                                   float(getattr(want, k)), rtol=1e-4)
+    cmin_w, crow_w = np.asarray(want.cmin), np.asarray(want.crow)
+    np.testing.assert_allclose(got.cmin.numpy(), cmin_w, **tol)
+    # the second least CD of each column, from the same inputs
+    cd = _dense_cd(p, lane, targs)
+    m = p["ms"][:, None] & p["mt"][None, :]
+    srt = np.sort(np.where(m, cd, 3e38), axis=0)
+    clear = (srt[1] - srt[0]) > 1e-5 * np.abs(srt[0]) + 1e-30
+    dup_lo = np.arange(DUP[1].start, DUP[1].stop)
+    tied = np.isin(crow_w, dup_lo)
+    assert tied.sum() > 0 and clear.mean() > 0.5
+    crow = got.crow.numpy()
+    np.testing.assert_array_equal(crow[clear | tied], crow_w[clear | tied])
+    assert not np.isin(crow, np.arange(DUP[0].start, DUP[0].stop)).any()
+    empty = ~p["mt"]
+    assert (crow[empty] == 2**30).all() and (got.cmin.numpy()[empty]
+                                             == np.float32(3e38)).all()
+
+
+def _dense_cd(p, lane, targs):
+    """The lane's CD [S, C], dense, from the plain version's pieces."""
+    from ghicp_tpu_torch.ops.cost_kernel import (_factors, factor_cost,
+                                                 factor_ed)
+    from ghicp_tpu_torch.ops.stream_kernel import (_ham_block, _sim_block,
+                                                   unpack_words)
+    ks, kt = _factors(targs[0]), _factors(targs[1])
+    f, wed, wfd = targs[2], targs[7], targs[8]
+    if lane == "none":
+        return (np.float32(wed) * factor_ed(ks, kt, SCALE)).numpy()
+    if lane == "similarity":
+        return factor_cost(ks, kt, _sim_block(f.fs, f.ft, f.dim), wed, wfd,
+                           SCALE, True)[1].numpy()
+    fd = _ham_block(unpack_words(f.words_s), f.na, unpack_words(f.words_t),
+                    f.nb)
+    return factor_cost(ks, kt, fd, wed, wfd, SCALE)[1].numpy()
+
+
+@pytest.mark.parametrize("lane", LANES)
+def test_sweep_col_side_is_tile_independent(col_problem, lane):
+    """cmin / crow (and every other output) do not depend on the column
+    block width, and ``col_side`` changes none of the other outputs."""
+    _, targs, _, kw = _col_args(col_problem, lane)
+    a = stream_sweep_plain(*targs, tc=256, col_side=True)
+    b = stream_sweep_plain(*targs, tc=48, col_side=True)
+    c = stream_sweep_plain(*targs, tc=100)
+    for k in ("v1", "j1", "v2", "j2", "vsel", "cnt", "cd_max", "b_max",
+              "cmin", "crow"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+    for k in ("v1", "j1", "v2", "j2", "vsel", "cnt", "ed_max", "fd_max"):
+        assert torch.equal(getattr(a, k), getattr(c, k)), k
+    assert c.cmin is None and c.crow is None
+    with pytest.raises(TypeError):
+        stream_sweep(*targs, mult_blend=not kw.get("mult_blend", False))
+
+
+def test_col_side_matches_dense_argmin():
+    """tests/test_stream_engine.py's column-side check on the port: the
+    per-column least CD and its lowest row against a dense numpy
+    min / argmin (BSC, two source variants)."""
+    rng = np.random.default_rng(5)
+    S, C, n_bits = 192, 256, 441
+    kp_s = rng.uniform(0, 10, (S, 3)).astype(np.float32)
+    kp_t = rng.uniform(0, 10, (C, 3)).astype(np.float32)
+    bits_s = (rng.random((2, S, n_bits)) < 0.3).astype(np.float32)
+    bits_t = (rng.random((1, C, n_bits)) < 0.3).astype(np.float32)
+    feats = make_stream_features(pack_bits(_t(bits_s).long()),
+                                 pack_bits(_t(bits_t).long()))
+    ms, mt = rng.random(S) < 0.9, rng.random(C) < 0.9
+    wed, wfd, scale = 0.4, 0.6, 0.21
+    sw = stream_sweep_plain(_t(kp_s), _t(kp_t), feats, _t(ms), _t(mt),
+                            torch.zeros(C), torch.full((S,), -1), wed, wfd,
+                            scale, tc=64, col_side=True)
+    ham = np.stack([bits_s[v].sum(1)[:, None] + bits_t[0].sum(1)[None, :]
+                    - 2.0 * bits_s[v] @ bits_t[0].T for v in range(2)])
+    ed = scale * np.linalg.norm(kp_s[:, None] - kp_t[None], axis=-1)
+    cd = wed * ed + wfd * ham.min(0)
+    cdm = np.where(ms[:, None] & mt[None, :], cd, 3.0e38)
+    cmin_ref = cdm.min(0)
+    crow_ref = np.where(cmin_ref < 3.0e38, cdm.argmin(0), 2**30)
+    np.testing.assert_allclose(sw.cmin.numpy(), cmin_ref, rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_array_equal(sw.crow.numpy(), crow_ref)
+
+
+def test_selected_no_features_matches_jax(col_problem):
+    p = col_problem
+    tgt = np.random.default_rng(12).integers(0, 256, 256)
+    jf, tf, _, _, _ = p["lanes"]["none"]
+    want = jax_selected(jnp.asarray(p["kp_s"]), jnp.asarray(p["kp_t"]), jf,
+                        jnp.asarray(tgt), WED, 0.0, SCALE, no_features=True)
+    got = stream_selected(_t(p["kp_s"]), _t(p["kp_t"]), tf, _t(tgt), WED,
+                          0.0, SCALE)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6)
+    assert not got[2].any()
 
 
 def test_selected_matches_jax(problem):
