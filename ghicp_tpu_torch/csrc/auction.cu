@@ -3,7 +3,7 @@
 // Replaces two Pallas TPU kernels of the JAX package:
 //   * ghicp_tpu/ops/auction_rounds.py::auction_phase_gs_pallas (_gs_kernel):
 //     one epsilon phase of a Gauss-Seidel forward auction with an
-//     outside-option sink, on a stored bf16 benefit matrix  -> gs_phase();
+//     outside-option sink, on a stored benefit matrix       -> gs_phase();
 //   * ghicp_tpu/ops/auction_rounds.py::auction_warm_fused_pallas
 //     (_warm_fused_kernel): one warm engine iteration — sweep 0 over benefits
 //     rebuilt from the FD stripe and the keypoint coordinates, the eps-CS
@@ -11,11 +11,14 @@
 //     and greedy completion                                 -> warm_fused();
 //     with ``mult`` the FPFH/RoPS cost ED * expf(-k * logf(max(FD, 1e-6)))
 //     (k in the wfd slot) instead of the BSC blend W_ED * ED + W_FD * FD.
+// The matrix (K2's benefits, K3's FD) is bf16 or, on the auction_bf16=False
+// lane, float32: each kernel is a template on its element type T, and the
+// entries take a flag; either way the arithmetic is float32.
 //
-// Bound on this card: memory.  A full sweep reads the [S, C] bf16 matrix
-// once (134 MB at 8192^2, 40 us at 3.35 TB/s); later sweeps read only the
-// row tiles that still have open rows, so a sweep's floor is its active
-// tiles' bytes.  The arithmetic is a handful of float ops per entry.
+// Bound on this card: memory.  A full sweep reads the [S, C] matrix once
+// (bf16: 134 MB at 8192^2, 40 us at 3.35 TB/s; float32 twice that); later
+// sweeps read only the row tiles that still have open rows, so a sweep's
+// floor is its active tiles' bytes.  The arithmetic is a handful of float ops per entry.
 //
 // Design.  One persistent cooperative launch (grid = co-resident blocks,
 // cg::grid_group::sync between stages) keeps the whole phase on the card:
@@ -49,9 +52,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "top2.cuh"
+
 namespace cg = cooperative_groups;
 
-#define NEG_F (-3.0e38f)
 #define MAX_TILES 1024
 
 constexpr int NT = 256;           // threads per block
@@ -61,7 +65,8 @@ struct Params {
   int S, C, ts, n_tiles, max_rounds, complete;
   float sink, eps;                // eps: K2's phase epsilon (K3 derives its own)
   const float* sched;             // [max_rounds] escalation boost per sweep
-  const __nv_bfloat16* mat;       // K2: benefits b [S, C]; K3: FD [S, C]
+  const void* mat;                // K2: benefits b [S, C]; K3: FD [S, C]
+                                  // (bf16 or float32: the kernels' T)
   // K3 only
   const float4* kps;              // [S] (x, y, z, |s|^2)
   const float4* kpt;              // [C] (x, y, z, |t|^2)
@@ -93,56 +98,6 @@ struct Params {
   unsigned int* bmax;             // K3: orderable max of the benefits
 };
 
-struct Top2 {
-  float v1;
-  int j1;
-  float v2;
-};
-
-__device__ __forceinline__ unsigned int f2o(float f) {
-  unsigned int u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float o2f(unsigned int o) {
-  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
-}
-
-__device__ __forceinline__ Top2 t2_empty() {
-  Top2 t;
-  t.v1 = -INFINITY;
-  t.j1 = 0x7fffffff;
-  t.v2 = NEG_F;   // jnp: max over the other columns and the NEG slot of j1
-  return t;
-}
-
-// Columns are pushed in increasing order per thread: strict > keeps the
-// lowest column on ties, and a tie at a later column still counts for v2.
-__device__ __forceinline__ void t2_push(Top2& a, float v, int j) {
-  if (v > a.v1) {
-    a.v2 = fmaxf(a.v2, a.v1);
-    a.v1 = v;
-    a.j1 = j;
-  } else {
-    a.v2 = fmaxf(a.v2, v);
-  }
-}
-
-__device__ __forceinline__ Top2 t2_merge(Top2 a, Top2 b) {
-  bool bw = (b.v1 > a.v1) || (b.v1 == a.v1 && b.j1 < a.j1);
-  Top2 r;
-  if (bw) {
-    r.v1 = b.v1;
-    r.j1 = b.j1;
-    r.v2 = fmaxf(b.v2, a.v1);
-  } else {
-    r.v1 = a.v1;
-    r.j1 = a.j1;
-    r.v2 = fmaxf(a.v2, b.v1);
-  }
-  return r;
-}
-
 struct RowOut {
   Top2 t;
   float vsel;
@@ -166,7 +121,7 @@ __device__ __forceinline__ float factor_benefit(const Params& P, float4 s,
 
 // Block-wide scan of one row: top-2 of (b - p) and, for sweep 0, the value
 // at the kept column and the benefit max.  All threads return the result.
-template <bool FACTOR, bool SWEEP0>
+template <typename T, bool FACTOR, bool SWEEP0>
 __device__ RowOut row_scan(const Params& P, int row, const float* pr,
                            int acol) {
   __shared__ Top2 s_t[NWARP];
@@ -180,17 +135,17 @@ __device__ RowOut row_scan(const Params& P, int row, const float* pr,
     s = P.kps[row];
     msr = P.ms[row];
   }
-  const __nv_bfloat16* rp = P.mat + (size_t)row * C;
+  const T* rp = static_cast<const T*>(P.mat) + (size_t)row * C;
   for (int c0 = threadIdx.x * 8; c0 < C; c0 += NT * 8) {
-    uint4 raw = __ldg(reinterpret_cast<const uint4*>(rp + c0));
+    float xv[8];
+    load8(rp + c0, xv);
     float4 pa = __ldcg(reinterpret_cast<const float4*>(pr + c0));
     float4 pb = __ldcg(reinterpret_cast<const float4*>(pr + c0 + 4));
     float pv[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       int c = c0 + q;
-      float x = __bfloat162float(h[q]);
+      float x = xv[q];
       float bt = FACTOR ? factor_benefit(P, s, msr, c, x) : x;
       float v = __fsub_rn(bt, pv[q]);
       t2_push(t, v, c);
@@ -254,7 +209,7 @@ __device__ void build_active(const Params& P, int* s_list, int* s_n,
 }
 
 // Gauss-Seidel sweeps over the active tiles, from sweep r0 on.
-template <bool FACTOR>
+template <typename T, bool FACTOR>
 __device__ int gs_sweeps(const Params& P, cg::grid_group& grid, int r0,
                          float eps) {
   __shared__ int s_list[MAX_TILES];
@@ -276,7 +231,7 @@ __device__ int gs_sweeps(const Params& P, cg::grid_group& grid, int r0,
           if (threadIdx.x == 0) P.rowdec[lr] = -2;
           continue;
         }
-        RowOut o = row_scan<FACTOR, false>(P, row, P.p, -1);
+        RowOut o = row_scan<T, FACTOR, false>(P, row, P.p, -1);
         if (threadIdx.x == 0) {
           if (o.t.v1 <= P.sink) {
             P.rowdec[lr] = -1;
@@ -320,21 +275,23 @@ __device__ int gs_sweeps(const Params& P, cg::grid_group& grid, int r0,
   return r;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(NT) gs_phase_kernel(Params P) {
   cg::grid_group grid = cg::this_grid();
-  const int r = gs_sweeps<false>(P, grid, 0, P.eps);
+  const int r = gs_sweeps<T, false>(P, grid, 0, P.eps);
   // greedy completion of rows still open: best column at the final prices
   // or the sink (-1 = row was not open, C = sink)
   if (P.complete) {
     for (int row = blockIdx.x; row < P.S; row += gridDim.x) {
       if (!__ldcg(P.open + row)) continue;
-      RowOut o = row_scan<false, false>(P, row, P.p, -1);
+      RowOut o = row_scan<T, false, false>(P, row, P.p, -1);
       if (threadIdx.x == 0) P.gcol[row] = (o.t.v1 > P.sink) ? o.t.j1 : P.C;
     }
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) *P.rounds = r;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(NT) warm_fused_kernel(Params P) {
   cg::grid_group grid = cg::this_grid();
   const int gtid = blockIdx.x * NT + threadIdx.x;
@@ -342,7 +299,7 @@ __global__ void __launch_bounds__(NT) warm_fused_kernel(Params P) {
   // ---- sweep 0: exact hints at the bidding-start prices ----------------
   for (int row = blockIdx.x; row < P.S; row += gridDim.x) {
     const int ac = P.acol0[row];
-    RowOut o = row_scan<true, true>(P, row, P.p0, ac);
+    RowOut o = row_scan<T, true, true>(P, row, P.p0, ac);
     if (threadIdx.x == 0) {
       P.hv1[row] = o.t.v1;
       P.hj1[row] = o.t.j1;
@@ -406,7 +363,7 @@ __global__ void __launch_bounds__(NT) warm_fused_kernel(Params P) {
   }
   grid.sync();
   // ---- Gauss-Seidel sweeps on factor-built benefits --------------------
-  const int r = gs_sweeps<true>(P, grid, 1, eps);
+  const int r = gs_sweeps<T, true>(P, grid, 1, eps);
   // ---- greedy completion from the parked hints -------------------------
   for (int i = gtid; i < P.S; i += gthreads) {
     if (!__ldcg(P.open + i)) continue;
@@ -437,7 +394,7 @@ static int launch(const void* fn, Params* P, void* stream) {
   return (int)cudaGetLastError();
 }
 
-extern "C" int gs_phase(const void* b, float* p, int* owner, int* sunk,
+extern "C" int gs_phase(const void* b, int f32, float* p, int* owner, int* sunk,
                         int* open, int* gcol, int* rounds, const float* sched,
                         float eps, float sink, int max_rounds, int complete,
                         int S, int C, int ts,
@@ -452,7 +409,7 @@ extern "C" int gs_phase(const void* b, float* p, int* owner, int* sunk,
   P.sink = sink;
   P.eps = eps;
   P.sched = sched;
-  P.mat = (const __nv_bfloat16*)b;
+  P.mat = b;
   P.p = p;
   P.owner = owner;
   P.sunk = sunk;
@@ -461,10 +418,12 @@ extern "C" int gs_phase(const void* b, float* p, int* owner, int* sunk,
   P.rounds = rounds;
   P.bid = bid;
   P.rowdec = rowdec;
-  return launch((const void*)gs_phase_kernel, &P, stream);
+  return launch(f32 ? (const void*)gs_phase_kernel<float>
+                     : (const void*)gs_phase_kernel<__nv_bfloat16>,
+                &P, stream);
 }
 
-extern "C" int warm_fused(const void* fd, const void* kps, const void* kpt,
+extern "C" int warm_fused(const void* fd, int f32, const void* kps, const void* kpt,
                           const int* ms, const int* mt, const float* p0,
                           const int* acol0, const int* sunk0,
                           const int* ownok, const float* sched, float wed,
@@ -485,7 +444,7 @@ extern "C" int warm_fused(const void* fd, const void* kps, const void* kpt,
   P.max_rounds = max_rounds;
   P.sink = sink;
   P.sched = sched;
-  P.mat = (const __nv_bfloat16*)fd;
+  P.mat = fd;
   P.kps = (const float4*)kps;
   P.kpt = (const float4*)kpt;
   P.ms = ms;
@@ -516,5 +475,7 @@ extern "C" int warm_fused(const void* fd, const void* kps, const void* kpt,
   P.hv2 = hv2;
   P.hvsel = hvsel;
   P.bmax = bmax;
-  return launch((const void*)warm_fused_kernel, &P, stream);
+  return launch(f32 ? (const void*)warm_fused_kernel<float>
+                     : (const void*)warm_fused_kernel<__nv_bfloat16>,
+                &P, stream);
 }

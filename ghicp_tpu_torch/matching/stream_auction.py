@@ -6,8 +6,8 @@ Same forward-auction semantics as :mod:`ghicp_tpu_torch.matching.auction`
 starts), with every full-matrix reduction replaced by a sweep of kernel K5
 (:func:`ghicp_tpu_torch.ops.stream_kernel.stream_sweep`): benefits are
 rebuilt from the coordinate and feature factors inside each sweep (packed
-BSC bits, with ``mult_blend`` the FPFH/RoPS descriptor rows, with
-:class:`NoFeatures` none at all).
+BSC bits, FPFH/RoPS descriptor rows or, with :class:`NoFeatures`, none at
+all; the features' type picks the blend).
 
 A solve spends one sweep for the CD statistics and the warm-start hints
 (sweep 0; skipped on the warm fast path, where a :class:`StreamCarry` from
@@ -112,8 +112,7 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
                  rel_eps: float, max_sweeps: int, p0, price_uncertainty,
                  acol0, pen_prev, carry: Optional[StreamCarry] = None,
                  stats_free: bool = False, open_cap: int = 0,
-                 compact_extra_sweeps: int = 0,
-                 mult_blend: bool = False) -> StreamSolveResult:
+                 compact_extra_sweeps: int = 0) -> StreamSolveResult:
     """Matrix-free KM-equivalent solve for one engine iteration.
 
     ``penalty_from_stats(cd_mean, cd_std)`` gives the penalty (the engine
@@ -123,9 +122,8 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
     ``stats_free`` replaces sweep 0 by factor gathers at the kept columns
     and the carried bounds.  ``open_cap`` > 0 compacts the open rows into
     a block of that many rows (rounded up to the kernel's row tile) once
-    they fit.  ``mult_blend``: the FPFH/RoPS lane (``feats`` a
-    ``DescFeatures``, k in ``wfd``); ``feats`` a ``NoFeatures``: the
-    feature-"none" lane (CD = W_ED * ED).
+    they fit.  ``feats`` a ``DescFeatures``: the FPFH/RoPS lane (k in
+    ``wfd``); a ``NoFeatures``: the feature-"none" lane (CD = W_ED * ED).
     """
     S, C = kp_s.shape[0], kp_t.shape[0]
     dev = kp_s.device
@@ -141,14 +139,13 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
 
     def sweep_fn(p, ac):
         return stream_sweep(kp_s, kp_t, feats, mask_s, mask_t, p, ac, wed,
-                            wfd, scale, mult_blend=mult_blend)
+                            wfd, scale)
 
     def sub_sweep(idx, sub_mask, p, ac_sub):
         nonlocal n_compact
         n_compact += 1
         return stream_sweep(kp_s[idx], kp_t, subset_rows(feats, idx),
-                            sub_mask, mask_t, p, ac_sub, wed, wfd, scale,
-                            mult_blend=mult_blend)
+                            sub_mask, mask_t, p, ac_sub, wed, wfd, scale)
 
     # --- sweep 0: statistics + warm-start hints at mid-deflated prices ---
     real0 = (acol0 >= 0) & (acol0 < C)
@@ -164,8 +161,7 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
     fast = carry is not None and carry.ok and bool(stats_free)
     if fast:
         penalty = penalty_from_stats(zero, zero)
-        cd0, _, _ = stream_selected(kp_s, kp_t, feats, jc0, wed, wfd, scale,
-                                    mult_blend)
+        cd0, _, _ = stream_selected(kp_s, kp_t, feats, jc0, wed, wfd, scale)
         vsel0 = torch.where(real0 & mask_s & mask_t[jc0],
                             -cd0 - p_mid[jc0], NEG)
         dp = torch.abs(penalty - f(pen_prev))
@@ -295,7 +291,7 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
     matched = (acol >= 0) & (acol < C)
     jc = torch.where(matched, acol, 0)
     cd_sel, _, fd_sel = stream_selected(kp_s, kp_t, feats, jc, wed, wfd,
-                                        scale, mult_blend)
+                                        scale)
     real = mask_s & matched & mask_t[jc] & (cd_sel < penalty)
     w = real.to(torch.float32)
     cor = w.sum()

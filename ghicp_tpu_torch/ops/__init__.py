@@ -4,8 +4,10 @@ Every kernel wrapper launches its kernel for CUDA tensors and runs the
 plain version for CPU tensors only.  Each launch adds one to the kernel's
 count in :data:`LAUNCHES`, so a run can show which kernels its path went
 through; the FPFH/RoPS (multiplicative-blend) variants of K1, K3 and K5
-count under their own ``*_mult`` names, K5's feature-"none" variant under
-``stream_sweep_none`` and its column-side variants under ``*_col``.
+count under their own ``*_mult`` names, the float32 variants of K1-K3
+(the ``auction_bf16=False`` lane) and of K7 / K8 under ``*_f32``, K5's
+feature-"none" variant under ``stream_sweep_none`` and its column-side
+variants under ``*_col``.
 """
 from __future__ import annotations
 
@@ -19,7 +21,14 @@ LAUNCHES: dict[str, int] = {"fused_benefit": 0, "auction_phase_gs": 0,
                             "stream_sweep_mult": 0, "stream_sweep_col": 0,
                             "stream_sweep_mult_col": 0,
                             "stream_sweep_none": 0,
-                            "stream_sweep_none_col": 0}
+                            "stream_sweep_none_col": 0,
+                            "fused_benefit_f32": 0,
+                            "fused_benefit_mult_f32": 0,
+                            "auction_phase_gs_f32": 0,
+                            "auction_warm_fused_f32": 0,
+                            "auction_warm_fused_mult_f32": 0,
+                            "auction_rounds": 0, "auction_rounds_f32": 0,
+                            "auction_phase": 0, "auction_phase_f32": 0}
 
 
 def count_launch(name: str) -> None:

@@ -1,8 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-into ``_build/<name>-<hash>.so`` (the hash covers the source and the
-flags), then loaded with ``ctypes``.  Nothing is built at import time: the
+into ``_build/<name>-<hash>.so`` (the hash covers the source, the shared
+``csrc/*.cuh`` headers and the flags), then loaded with ``ctypes``.  Nothing is built at import time: the
 first launch builds what it needs, and :func:`build_all` builds every
 source at once (one ``nvcc`` per source, all started together).  Triton
 kernels keep their cache under the same ignored directory.
@@ -41,8 +41,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # the hash covers the shared headers too: a header edit rebuilds
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.read_bytes())
     return BUILD / f"{name}-{h.hexdigest()[:12]}.so"
 
 

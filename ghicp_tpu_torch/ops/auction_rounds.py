@@ -1,16 +1,25 @@
 """Gauss-Seidel auction phase (kernel K2) and the single-launch warm
-iteration (kernel K3), CUDA C++ in ``csrc/auction.cu``, with their plain
-PyTorch versions.
+iteration (kernel K3), CUDA C++ in ``csrc/auction.cu``, and the Jacobi
+auction rounds (kernels K7 and K8, one kernel in ``csrc/jacobi.cu``), with
+their plain PyTorch versions.
 
 K2 replaces ``ghicp_tpu/ops/auction_rounds.py::auction_phase_gs_pallas``
 (Pallas ``_gs_kernel``); K3 replaces
 ``ghicp_tpu/ops/auction_rounds.py::auction_warm_fused_pallas`` (Pallas
 ``_warm_fused_kernel``), with its ``mult_blend`` branch (the FPFH/RoPS cost
-ED * exp(-k log(max(FD, 1e-6))) in the benefit tile).  Both are bound by memory on this card: a full
-sweep reads the bf16 [S, C] matrix once (134 MB at 8192^2) and later sweeps
-only the row tiles with open rows.  The design notes (one cooperative
-persistent launch, 64-bit atomicMax bid resolution with the lowest-row tie
-rule, the exact sequential tile order) are at the head of the CUDA source.
+ED * exp(-k log(max(FD, 1e-6))) in the benefit tile).  Both take their
+matrix (K2's benefits, K3's FD) in bf16 or, on the ``auction_bf16=False``
+lane, float32, and count the float32 launches under ``*_f32`` names.  Both
+are bound by memory on this card: a full sweep reads the [S, C] matrix once
+(134 MB in bf16 at 8192^2) and later sweeps only the row tiles with open
+rows.  The design notes (one cooperative persistent launch, 64-bit
+atomicMax bid resolution with the lowest-row tie rule, the exact sequential
+tile order) are at the head of the CUDA source.
+
+K7 replaces ``auction_rounds_pallas`` (a fixed number of synchronous
+bidding rounds) and K8 ``auction_phase_pallas`` (rounds until no row is
+open, under a runtime budget); their plain versions port the JAX package's
+``auction_rounds_ref``.  No engine path of either package calls them.
 
 Semantics of one phase (both versions):
   rows of tile height ``ts`` are visited sweep by sweep over the tiles that
@@ -229,6 +238,95 @@ def auction_warm_fused_plain(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd,
     return p, owner, sunk, r, gcol, stats
 
 
+def _matrix_dtype(x, what: str) -> bool:
+    """True for a float32 matrix, False for bf16; anything else raises."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what} takes a bf16 or float32 matrix, got "
+                         f"{x.dtype}")
+    return x.dtype == torch.float32
+
+
+def _check_jacobi(b, what: str) -> None:
+    S, C = b.shape
+    if S % 128 or C % 128:
+        raise ValueError(f"{what}: needs S % 128 == 0 and C % 128 == 0 "
+                         f"(S={S}, C={C})")
+    _matrix_dtype(b, what)
+
+
+def _jacobi_round(bf, p, owner, sunk, eps, sink):
+    """One synchronous bidding round (the JAX package's
+    ``auction_rounds_ref`` body) on float32 benefits ``bf`` [S, C]; returns
+    the new (p, owner, sunk).  Among equal best bids the highest row
+    wins."""
+    S, C = bf.shape
+    dev = bf.device
+    gid = torch.arange(S, device=dev)
+    cols = torch.arange(C, device=dev)
+    owned = torch.zeros((S + 1,), dtype=torch.bool, device=dev)
+    own = owner.to(torch.int64)
+    owned[torch.where((own >= 0) & (own < S), own, S)] = True
+    unassigned = ~owned[:S] & (sunk == 0)
+    v = bf - p[None, :]
+    j1 = torch.argmax(v, dim=1)
+    v1 = v.gather(1, j1[:, None])[:, 0]
+    v2 = torch.where(cols[None, :] == j1[:, None], NEG, v).amax(dim=1)
+    del v
+    to_sink = unassigned & (v1 <= sink)
+    sunk = torch.where(to_sink, 1, sunk)
+    bidding = unassigned & ~to_sink
+    bid = ((p[j1] + v1) - torch.maximum(v2, sink)) + eps
+    bid = torch.where(bidding, bid, NEG)
+    win_bid = torch.full((C,), NEG, dtype=torch.float32, device=dev)
+    win_bid = win_bid.scatter_reduce(0, j1, bid, "amax")
+    wb = win_bid[j1]
+    is_best = bidding & (bid == wb) & (wb > NEG / 2)
+    winner = torch.full((C,), -1, dtype=torch.int64, device=dev)
+    winner = winner.scatter_reduce(0, j1, torch.where(is_best, gid, -1),
+                                   "amax")
+    has = winner >= 0
+    return (torch.where(has, win_bid, p),
+            torch.where(has, winner, own).to(torch.int32), sunk)
+
+
+def _jacobi_plain(b, p0, owner0, sunk0, eps, sink, n_rounds: int,
+                  early: bool):
+    """``n_rounds`` rounds, or with ``early`` rounds while
+    S - #owned columns - sum(sunk) > 0 and fewer than ``n_rounds`` ran."""
+    dev = b.device
+    S = b.shape[0]
+    bf = b.to(torch.float32)
+    f = lambda x: torch.tensor(_f32(x), dtype=torch.float32, device=dev)
+    eps_t, sink_t = f(eps), f(sink)
+    p = p0.to(device=dev, dtype=torch.float32).clone()
+    owner = owner0.to(device=dev, dtype=torch.int32).clone()
+    sunk = sunk0.to(device=dev, dtype=torch.int32).clone()
+    r = 0
+    while r < int(n_rounds):
+        if early and S - int((owner >= 0).sum()) - int(sunk.sum()) <= 0:
+            break
+        p, owner, sunk = _jacobi_round(bf, p, owner, sunk, eps_t, sink_t)
+        r += 1
+    return p, owner, sunk, r
+
+
+def auction_rounds_plain(b, p0, owner0, sunk0, eps, sink, n_rounds: int):
+    """Plain PyTorch version of K7: ``n_rounds`` synchronous bidding rounds
+    (a port of the JAX package's ``auction_rounds_ref``).  Returns (p [C],
+    owner [C], sunk [S])."""
+    return _jacobi_plain(b, p0, owner0, sunk0, eps, sink, n_rounds,
+                         False)[:3]
+
+
+def auction_phase_plain(b, p0, owner0, sunk0, eps, sink, max_rounds: int):
+    """Plain PyTorch version of K8: the same rounds until no row is open
+    (S - #owned columns - sum(sunk) == 0, tested before every round) or
+    ``max_rounds`` ran.  Returns (p, owner, sunk, rounds)."""
+    p, owner, sunk, r = _jacobi_plain(b, p0, owner0, sunk0, eps, sink,
+                                      max_rounds, True)
+    return p, owner, sunk, torch.tensor(r, dtype=torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -240,14 +338,26 @@ def _lib():
     from ghicp_tpu_torch.ops._build import cuda_library
     lib = cuda_library("auction")
     if not getattr(lib, "_typed", False):
-        lib.gs_phase.argtypes = ([_VP] * 8 + [_F, _F] + [_I] * 5
-                                 + [_VP] * 3)
+        lib.gs_phase.argtypes = ([_VP, _I] + [_VP] * 7 + [_F, _F]
+                                 + [_I] * 5 + [_VP] * 3)
         lib.gs_phase.restype = _I
-        lib.warm_fused.argtypes = ([_VP] * 10 + [_F] * 3 + [_I]
+        lib.warm_fused.argtypes = ([_VP, _I] + [_VP] * 9 + [_F] * 3 + [_I]
                                    + [_F] * 4 + [_I] * 4 + [_VP] * 16)
         lib.warm_fused.restype = _I
         lib._typed = True
     return lib
+
+
+def _jacobi_lib():
+    from ghicp_tpu_torch.ops._build import cuda_library
+    lib = cuda_library("jacobi")
+    if not getattr(lib, "_typed", False):
+        lib.jacobi_rounds.argtypes = ([_VP, _I] + [_VP] * 4 + [_F, _F]
+                                      + [_I] * 4 + [_VP] * 4)
+        lib.jacobi_rounds.restype = _I
+        lib._typed = True
+    return lib
+
 
 
 def _check_shapes(S, C, ts, what):
@@ -259,12 +369,11 @@ def _check_shapes(S, C, ts, what):
 def auction_phase_gs_cuda(b, p0, owner0, sunk0, open0, eps, sink,
                           max_rounds: int, ts: int, sched=None,
                           complete_open: bool = False):
-    """Launch K2 on the card (bf16 benefits)."""
+    """Launch K2 on the card (bf16 or float32 benefits)."""
     from ghicp_tpu_torch.ops._build import check, ptr
     S, C = b.shape
     _check_shapes(S, C, ts, "auction_phase_gs")
-    if b.dtype != torch.bfloat16:
-        raise ValueError("auction_phase_gs kernel takes bf16 benefits")
+    f32_mat = _matrix_dtype(b, "auction_phase_gs")
     dev = b.device
     b = b.contiguous()
     f32, i32 = torch.float32, torch.int32
@@ -281,13 +390,13 @@ def auction_phase_gs_cuda(b, p0, owner0, sunk0, open0, eps, sink,
     bid = torch.zeros((C,), dtype=torch.int64, device=dev)
     rowdec = torch.empty((ts,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().gs_phase(ptr(b), ptr(p), ptr(owner), ptr(sunk), ptr(open_),
+    rc = _lib().gs_phase(ptr(b), int(f32_mat), ptr(p), ptr(owner), ptr(sunk), ptr(open_),
                          ptr(gcol), ptr(rounds), ptr(sched), _f32(eps),
                          _f32(sink), int(max_rounds), int(bool(complete_open)),
                          S, C, ts, ptr(bid), ptr(rowdec),
                          _VP(stream))
     check(rc, "auction_phase_gs launch")
-    count_launch("auction_phase_gs")
+    count_launch("auction_phase_gs_f32" if f32_mat else "auction_phase_gs")
     return p, owner, sunk, rounds[0], gcol
 
 
@@ -309,12 +418,11 @@ def auction_warm_fused_cuda(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
                             p0, owner0, acol0, sunk0, own_ok, sink, eps_abs,
                             rel_eps, dpen, max_rounds: int, ts: int,
                             sched=None, mult_blend: bool = False):
-    """Launch K3 on the card (bf16 FD)."""
+    """Launch K3 on the card (bf16 or float32 FD)."""
     from ghicp_tpu_torch.ops._build import check, ptr
     S, C = fd.shape
     _check_shapes(S, C, ts, "auction_warm_fused")
-    if fd.dtype != torch.bfloat16:
-        raise ValueError("auction_warm_fused kernel takes a bf16 FD matrix")
+    f32_mat = _matrix_dtype(fd, "auction_warm_fused")
     dev = fd.device
     f32, i32 = torch.float32, torch.int32
     fd = fd.contiguous()
@@ -350,7 +458,7 @@ def auction_warm_fused_cuda(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
                         device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().warm_fused(
-        ptr(fd), ptr(ks), ptr(kt), ptr(ms), ptr(mt), ptr(p0), ptr(acol0),
+        ptr(fd), int(f32_mat), ptr(ks), ptr(kt), ptr(ms), ptr(mt), ptr(p0), ptr(acol0),
         ptr(sunk0), ptr(own_ok), ptr(sched), _f32(wed), _f32(wfd),
         _f32(scale), int(bool(mult_blend)), _f32(sink), _f32(eps_abs),
         _f32(rel_eps), _f32(dpen),
@@ -359,8 +467,8 @@ def auction_warm_fused_cuda(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
         ptr(stats), ptr(bid), ptr(rowdec), ptr(vic), ptr(hv1), ptr(hj1),
         ptr(hv2), ptr(hvsel), ptr(bmax), _VP(stream))
     check(rc, "auction_warm_fused launch")
-    count_launch("auction_warm_fused_mult" if mult_blend
-                 else "auction_warm_fused")
+    count_launch("auction_warm_fused" + ("_mult" if mult_blend else "")
+                 + ("_f32" if f32_mat else ""))
     return p, owner, sunk, rounds[0], gcol, stats
 
 
@@ -382,3 +490,67 @@ def auction_warm_fused(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale, p0,
     if require_device(fd, "auction_warm_fused") == "cuda":
         return auction_warm_fused_cuda(*args)
     return auction_warm_fused_plain(*args)
+
+
+def _jacobi_cuda(b, p0, owner0, sunk0, eps, sink, n_rounds: int,
+                 early: bool, what: str):
+    from ghicp_tpu_torch.ops._build import check, ptr
+    S, C = b.shape
+    f32_mat = b.dtype == torch.float32
+    dev = b.device
+    b = b.contiguous()
+    p = as_rows(p0, C, 0, torch.float32, dev, "p0").clone()
+    owner = as_rows(owner0, C, 0, torch.int32, dev, "owner0").clone()
+    sunk = as_rows(sunk0, S, 0, torch.int32, dev, "sunk0").clone()
+    rounds = torch.zeros((1,), dtype=torch.int32, device=dev)
+    stamp = torch.zeros((S,), dtype=torch.int32, device=dev)
+    key = torch.zeros((C,), dtype=torch.int64, device=dev)
+    cnt = torch.zeros((4,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _jacobi_lib().jacobi_rounds(
+        ptr(b), int(f32_mat), ptr(p), ptr(owner), ptr(sunk), ptr(rounds),
+        _f32(eps), _f32(sink), int(n_rounds), int(bool(early)), S, C,
+        ptr(stamp), ptr(key), ptr(cnt), _VP(stream))
+    check(rc, f"{what} launch")
+    count_launch(what + ("_f32" if f32_mat else ""))
+    return p, owner, sunk, rounds[0]
+
+
+def auction_rounds_cuda(b, p0, owner0, sunk0, eps, sink, n_rounds: int):
+    """Launch K7 on the card: ``n_rounds`` fixed rounds."""
+    return _jacobi_cuda(b, p0, owner0, sunk0, eps, sink, n_rounds, False,
+                        "auction_rounds")[:3]
+
+
+def auction_phase_cuda(b, p0, owner0, sunk0, eps, sink, max_rounds: int):
+    """Launch K8 on the card: rounds until no row is open or
+    ``max_rounds``."""
+    return _jacobi_cuda(b, p0, owner0, sunk0, eps, sink, max_rounds, True,
+                        "auction_phase")
+
+
+def auction_rounds(b, p0, owner0, sunk0, eps, sink, n_rounds: int):
+    """``n_rounds`` synchronous (Jacobi) bidding rounds at a fixed epsilon.
+
+    b [S, C] bf16 or float32 benefits (computed in float32; very negative =
+    no pair), p0 [C] start prices, owner0 [C] row id or -1, sunk0 [S] (1 =
+    the row took the outside option ``sink``); S % 128 == 0, C % 128 == 0.
+    Returns (p [C], owner [C] int32, sunk [S] int32).  CUDA tensors run K7,
+    CPU tensors the plain version."""
+    _check_jacobi(b, "auction_rounds")
+    args = (b, p0, owner0, sunk0, eps, sink, int(n_rounds))
+    if require_device(b, "auction_rounds") == "cuda":
+        return auction_rounds_cuda(*args)
+    return auction_rounds_plain(*args)
+
+
+def auction_phase(b, p0, owner0, sunk0, eps, sink, max_rounds: int):
+    """Jacobi bidding rounds until every row is owned or sunk or
+    ``max_rounds`` ran (arguments as :func:`auction_rounds`).  Returns
+    (p, owner, sunk, rounds).  CUDA tensors run K8, CPU tensors the plain
+    version."""
+    _check_jacobi(b, "auction_phase")
+    args = (b, p0, owner0, sunk0, eps, sink, int(max_rounds))
+    if require_device(b, "auction_phase") == "cuda":
+        return auction_phase_cuda(*args)
+    return auction_phase_plain(*args)

@@ -7,23 +7,28 @@ Replaces the TPU kernel ``ghicp_tpu/ops/cost_kernel.py::fused_benefit``
   CD = W_ED * ED + W_FD * FD                           (additive BSC blend)
      or ED * exp(-k * log(max(FD, 1e-6)))              (``mult_blend``: the
         FPFH/RoPS lane, FD a similarity, k passed as W_FD, W_ED unused)
-  b  = -CD at valid pairs, -3e38 elsewhere             (written bf16)
+  b  = -CD at valid pairs, -3e38 elsewhere             (written in the
+                                                        FD's type)
 
 and, from the float32 benefits, the warm-start hints v1 = rowmax(b - p)
 and vsel = (b - p)[acol0], plus the statistics count, sum CD, sum CD^2 and
 max CD (only ``with_stats``), max ED and max(-CD) over valid pairs.
 
-Bound on this card: memory — one bf16 FD read and one bf16 b write, 268 MB
-at 8192^2 (80 us at 3.35 TB/s); the arithmetic (~20 float ops an entry)
-sits far below the float32 rate.  Design: one program per block of rows
+The FD is bf16 or, on the ``auction_bf16=False`` lane, float32.
+
+Bound on this card: memory — one FD read and one b write, 268 MB at
+8192^2 in bf16 (80 us at 3.35 TB/s), twice that in float32; the
+arithmetic (~20 float ops an entry) sits far below the float32 rate.  Design: one program per block of rows
 walks the columns in blocks with running row maxima, so FD is read once
 and b written once; the cross term is three float32 products (no tensor
 cores: the JAX package computes it at HIGHEST precision), and floating-
 point fusion is off so the result matches the plain version bit for bit.
 The multiplicative blend takes libdevice's ``expf`` / ``logf`` (what
 PyTorch's ``exp`` / ``log`` call on the card), not ``tl.exp`` / ``tl.log``,
-which lower to the approximate ``ex2`` / ``lg2``.  Each program writes its statistics to a small [programs, 8] buffer that
-the wrapper reduces.
+which lower to the approximate ``ex2`` / ``lg2``.  Each program writes its
+statistics to a small [programs, 8] buffer that the wrapper reduces.  The
+float32 variants count their launches as ``fused_benefit_f32`` and
+``fused_benefit_mult_f32``.
 """
 from __future__ import annotations
 
@@ -103,7 +108,7 @@ def fused_benefit_plain(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
         cnt = s1 = s2 = cdmax = zero
     edmax = torch.clamp(torch.where(m, ed, 0.0).amax(), min=0.0)
     bmax = torch.clamp(torch.where(m, -cd, NEG).amax(), min=NEG)
-    return (bf.to(torch.bfloat16), cnt, s1, s2, cdmax, edmax, bmax, v1, vsel)
+    return (bf.to(fd.dtype), cnt, s1, s2, cdmax, edmax, bmax, v1, vsel)
 
 
 def _kernel():
@@ -124,7 +129,8 @@ def _kernel():
                              ac_ptr, b_ptr, v1_ptr, vsel_ptr, part_ptr,
                              S, C, wed, wfd, scale,
                              WITH_STATS: tl.constexpr, MULT: tl.constexpr,
-                             BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
+                             B_F32: tl.constexpr, BLOCK_S: tl.constexpr,
+                             BLOCK_C: tl.constexpr):
         pid = tl.program_id(0)
         rows = pid * BLOCK_S + tl.arange(0, BLOCK_S)
         rmask = rows < S
@@ -165,7 +171,10 @@ def _kernel():
                 cd = wed * ed + wfd * fdv
             m = ms[:, None] & mt[None, :] & m2
             b = tl.where(m, -cd, -3.0e38)
-            tl.store(b_ptr + off, b.to(tl.bfloat16), mask=m2)
+            if B_F32:
+                tl.store(b_ptr + off, b, mask=m2)
+            else:
+                tl.store(b_ptr + off, b.to(tl.bfloat16), mask=m2)
             v = tl.where(cmask[None, :], b - p[None, :], float("-inf"))
             v1 = tl.maximum(v1, tl.max(v, axis=1))
             hit = cols[None, :] == ac[:, None]
@@ -195,16 +204,18 @@ def _kernel():
 def fused_benefit_cuda(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
                        p_defl, acol0, with_stats: bool = True,
                        mult_blend: bool = False):
-    """Launch K1 on the card (bf16 FD in, bf16 b out)."""
+    """Launch K1 on the card (bf16 or float32 FD in, b out in its type)."""
     S, C = fd.shape
-    if fd.dtype != torch.bfloat16:
-        raise ValueError("fused_benefit kernel takes a bf16 FD matrix")
+    if fd.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_benefit kernel takes a bf16 or float32 FD "
+                         f"matrix, got {fd.dtype}")
+    f32_mat = fd.dtype == torch.float32
     dev = fd.device
     f32, i32 = torch.float32, torch.int32
     ks = _factors(as_rows(kp_s, S, 3, f32, dev, "kp_s"))
     kt = _factors(as_rows(kp_t, C, 3, f32, dev, "kp_t"))
     fd = fd.contiguous()
-    b = torch.empty((S, C), dtype=torch.bfloat16, device=dev)
+    b = torch.empty((S, C), dtype=fd.dtype, device=dev)
     v1 = torch.empty((S,), dtype=torch.float32, device=dev)
     vsel = torch.empty((S,), dtype=torch.float32, device=dev)
     n_prog = -(-S // BLOCK_S)
@@ -216,9 +227,10 @@ def fused_benefit_cuda(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
                     as_rows(acol0, S, 0, i32, dev, "acol0"), b, v1, vsel, part,
                     S, C, _f32(wed), _f32(wfd), _f32(scale),
                     WITH_STATS=bool(with_stats), MULT=bool(mult_blend),
-                    BLOCK_S=BLOCK_S,
+                    B_F32=f32_mat, BLOCK_S=BLOCK_S,
                     BLOCK_C=BLOCK_C, num_warps=8, enable_fp_fusion=False)
-    count_launch("fused_benefit_mult" if mult_blend else "fused_benefit")
+    count_launch("fused_benefit" + ("_mult" if mult_blend else "")
+                 + ("_f32" if f32_mat else ""))
     tot = part.to(torch.float64).sum(dim=0).to(torch.float32)
     mx = part.amax(dim=0)
     return (b, tot[0], tot[1], tot[2], mx[3], mx[4], mx[5], v1, vsel)
@@ -231,12 +243,12 @@ def fused_benefit(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
     """One-sweep benefit matrix + CD statistics + warm-start hints.
 
     kp_s [S, 3], kp_t [C, 3] float32 (centred by a common offset first);
-    fd [S, C]; masks bool; ``p_defl`` [C] prices and ``acol0`` [S] previous
-    assignment feed v1/vsel.  Returns (b [S, C] bf16, cd_count, cd_sum,
-    cd_sumsq, cd_max, ed_max, b_max, v1 [S], vsel [S]).  ``mult_blend``
-    takes the FPFH/RoPS cost ED / max(FD, 1e-6)^k with k in the ``wfd``
-    slot.  CUDA tensors run the Triton kernel, CPU tensors the plain
-    version.
+    fd [S, C] bf16 or float32; masks bool; ``p_defl`` [C] prices and
+    ``acol0`` [S] previous assignment feed v1/vsel.  Returns (b [S, C] in
+    the FD's type, cd_count, cd_sum, cd_sumsq, cd_max, ed_max, b_max,
+    v1 [S], vsel [S]).  ``mult_blend`` takes the FPFH/RoPS cost
+    ED / max(FD, 1e-6)^k with k in the ``wfd`` slot.  CUDA tensors run the
+    Triton kernel, CPU tensors the plain version.
     """
     S, C = fd.shape
     dev = fd.device

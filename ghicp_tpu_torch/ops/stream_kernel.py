@@ -3,7 +3,7 @@
 
 Replaces ``ghicp_tpu/ops/stream_kernel.py::stream_sweep`` (Pallas
 ``_kernel``) on its Hamming (BSC) lane and its similarity (FPFH/RoPS,
-``mult_blend``) lane.  One sweep computes, for every source row against
+multiplicative blend) lane; the features' type picks the lane.  One sweep computes, for every source row against
 every target column, without materializing [S, C]:
 
   ED = scale * sqrt(max(|s|^2 + |t|^2 - 2 s.t, 0))   (fixed product order)
@@ -163,6 +163,14 @@ def make_desc_features(desc_s: torch.Tensor, desc_t: torch.Tensor,
     return DescFeatures(fs=pad(desc_s).to(torch.bfloat16).contiguous(),
                         ft=pad(desc_t).to(torch.bfloat16).contiguous(),
                         dim=D)
+
+
+def check_features(feats, what: str) -> None:
+    """Raise unless ``feats`` is one of the three lanes' factor types."""
+    if not isinstance(feats, (StreamFeatures, DescFeatures, NoFeatures)):
+        raise TypeError(f"{what}: features must be StreamFeatures, "
+                        f"DescFeatures or NoFeatures, got "
+                        f"{type(feats).__name__}")
 
 
 def subset_rows(feats, idx: torch.Tensor):
@@ -406,19 +414,16 @@ def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
 
 
 def stream_sweep(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed, wfd,
-                 scale, mult_blend: bool = False,
-                 col_side: bool = False) -> SweepResult:
+                 scale, col_side: bool = False) -> SweepResult:
     """One matrix-free sweep: per-row top-2 of (b - p), vsel at ``acol``
     and the CD statistics.  kp_s [S, 3] / kp_t [C, 3] float32, centred by
     a common offset; ``prices`` [C]; ``acol`` [S] previous column, SINK or
-    -1.  ``mult_blend`` (the FPFH/RoPS lane) takes :class:`DescFeatures`
-    and k in ``wfd``; the none lane takes :class:`NoFeatures`, the BSC
-    lane :class:`StreamFeatures`.  ``col_side`` adds the per-column
-    least CD and its lowest row.  CUDA tensors run the kernel, CPU tensors
-    the plain version."""
-    if mult_blend != isinstance(feats, DescFeatures):
-        raise TypeError("stream_sweep: mult_blend takes DescFeatures, the "
-                        "BSC lane StreamFeatures")
+    -1.  The features' type picks the lane: :class:`StreamFeatures` the
+    BSC lane, :class:`DescFeatures` the FPFH/RoPS (multiplicative blend)
+    lane with k in ``wfd``, :class:`NoFeatures` the none lane; any other
+    type raises.  ``col_side`` adds the per-column least CD and its lowest
+    row.  CUDA tensors run the kernel, CPU tensors the plain version."""
+    check_features(feats, "stream_sweep")
     if isinstance(feats, NoFeatures) and feats.n_rows != kp_s.shape[0]:
         raise ValueError(f"stream_sweep: NoFeatures of {feats.n_rows} rows "
                          f"for {kp_s.shape[0]} source rows")
@@ -428,19 +433,19 @@ def stream_sweep(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed, wfd,
     return stream_sweep_plain(*args, col_side=col_side)
 
 
-def stream_selected(kp_s, kp_t, feats, tgt_idx, wed, wfd, scale,
-                    mult_blend: bool = False):
+def stream_selected(kp_s, kp_t, feats, tgt_idx, wed, wfd, scale):
     """(cd_sel, ed_sel, fd_sel) [S] at the pairs (i, tgt_idx[i]) from
     factor gathers: ED by the direct norm, FD by XOR popcounts, or on the
     similarity lane the similarity |fs_i . ft_j| and the multiplicative
     blend; with :class:`NoFeatures` FD = 0 and CD = W_ED * ED."""
+    check_features(feats, "stream_selected")
     dev = kp_s.device
     f = lambda x: torch.tensor(_f32(x), dtype=torch.float32, device=dev)
     tgt_idx = tgt_idx.to(torch.int64)
     ed = f(scale) * torch.linalg.norm(kp_s - kp_t[tgt_idx], dim=-1)
     if isinstance(feats, NoFeatures):
         return f(wed) * ed, ed, torch.zeros_like(ed)
-    if mult_blend:
+    if isinstance(feats, DescFeatures):
         fd = torch.abs((feats.fs.to(torch.float32)
                         * feats.ft[tgt_idx].to(torch.float32)).sum(dim=-1))
         return mult_cost(ed, fd, f(wfd)), ed, fd
@@ -450,22 +455,22 @@ def stream_selected(kp_s, kp_t, feats, tgt_idx, wed, wfd, scale,
     return f(wed) * ed + f(wfd) * fd, ed, fd
 
 
-def stream_feature_candidates(feats, mask_s, mask_t,
-                              mult_blend: bool = False, tc: int = PLAIN_TC):
+def stream_feature_candidates(feats, mask_s, mask_t, tc: int = PLAIN_TC):
     """Top-2 feature-nearest target columns per source row, matrix-free:
     column blocks of -Hamming (max over variants), or of the similarity
-    |fs . ft| (``mult_blend``, :class:`DescFeatures`; a float32 product
+    |fs . ft| (:class:`DescFeatures`; a float32 product
     of the bf16 rows).  Returns (cand [S, 2] int64, cand_ok [S, 2] bool)."""
     S, C = mask_s.shape[0], mask_t.shape[0]
     dev = mask_s.device
-    if mult_blend:
+    mult = isinstance(feats, DescFeatures)
+    if mult:
         a = feats.fs.to(torch.float32)
     else:
         fs = unpack_words(feats.words_s)
     state = _top2_init(S, dev)
     for off in range(0, C, tc):
         sl = slice(off, min(off + tc, C))
-        if mult_blend:
+        if mult:
             v = torch.abs(torch.matmul(a, feats.ft[sl].to(torch.float32).T))
         else:
             v = -_ham_block(fs, feats.na, unpack_words(feats.words_t[sl]),

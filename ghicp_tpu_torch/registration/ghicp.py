@@ -13,12 +13,16 @@ NNR (reciprocal closest pairs).  The dense kernel lane (KM,
 ``fused_cost_kernel`` and keypoint capacities that are multiples of 128,
 the JAX package's gate) runs two solve branches:
 
-* the full solve — the fused benefit sweep (kernel K1) builds the bf16
+* the full solve — the fused benefit sweep (kernel K1) builds the
   benefit matrix, the CD statistics and the warm-start hints, then the
   auction runs through the Gauss-Seidel phase kernel (K2);
 * the warm solve — BSC and FPFH/RoPS, once the penalty schedule is
   statistics-free and an assignment warm start exists (it > 1), at S, T >=
   1024, one launch of the warm fused kernel (K3) does the whole solve.
+
+The kernels read the FD and store the benefits in bf16 or, under
+``auction_bf16=False``, in float32 (their ``*_f32`` variants), as the JAX
+package's fused lane does.
 
 Otherwise the dense lane is the XLA lane (:func:`make_batched_body`): ED,
 the blend and its penalty as plain tensor passes, then
@@ -248,16 +252,7 @@ def initial_state(kp_s: torch.Tensor, n_target: int, config: GHICPConfig,
         scarry=None if lead else carry_init(S, dev))
 
 
-def _check_lane(config: GHICPConfig, S: int, T: int, stream: bool,
-                kernel_lane: bool, batched: bool = False) -> None:
-    if batched and config.feature in MULT_FEATURES:
-        raise NotImplementedError(
-            "the port's batched engine runs the bsc and none features only")
-    if kernel_lane and not config.auction_bf16:
-        raise NotImplementedError(
-            "the kernel lane takes a bf16 FD / benefit matrix; "
-            "auction_bf16=False runs on the XLA lane "
-            "(fused_cost_kernel=False)")
+def _check_lane(S: int, T: int, stream: bool) -> None:
     if stream and (S % 128 or T % 128):
         raise ValueError(f"keypoint capacities must be multiples of 128 "
                          f"(got {S}, {T})")
@@ -297,7 +292,7 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
     nnr = config.correspondence == CorrespondenceType.NNR
     kernel_lane = (not use_stream and km and config.fused_cost_kernel
                    and S % 128 == 0 and T % 128 == 0)
-    _check_lane(config, S, T, use_stream, kernel_lane)
+    _check_lane(S, T, use_stream)
     if not use_stream and not kernel_lane:
         xla = make_batched_body(kp_t[None], mask_s[None], mask_t[None],
                                 fd[None], [bbx_magnitude], config)
@@ -314,7 +309,10 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
     mid = 0.5 * (torch.where(mask_t[:, None], kp_t, 3e38).amin(dim=0)
                  + torch.where(mask_t[:, None], kp_t, -3e38).amax(dim=0))
     kp_t_c = torch.where(mask_t[:, None], kp_t - mid[None, :], 0.0)
-    fd_b = None if use_stream else fd.to(torch.bfloat16)
+    # the kernels' FD and benefit store: bf16, or float32 under
+    # auction_bf16=False (the matched-pair gathers read the same copy)
+    fd_b = None if use_stream else fd.to(
+        torch.bfloat16 if config.auction_bf16 else torch.float32)
     fd_min = None if use_stream or not mult else fd_min_of(fd, mask_s,
                                                            mask_t)
 
@@ -436,8 +434,7 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
             price_uncertainty=st.price_unc, acol0=st.acol,
             pen_prev=st.pen_prev, carry=st.scarry if fast else None,
             stats_free=sf and fast, open_cap=config.stream_open_cap,
-            compact_extra_sweeps=config.stream_compact_budget,
-            mult_blend=mult)
+            compact_extra_sweeps=config.stream_compact_budget)
 
     zero_p = torch.zeros((T,), dtype=torch.float32, device=dev)
     no_acol = torch.full((S,), -1, dtype=torch.int64, device=dev)
@@ -449,8 +446,7 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
         at the column minimum (the sweep's column side).  Returns (match,
         fsel, cd_sel, penalty, ed_max)."""
         sw = stream_sweep(kps_c, kp_t_c, stream, mask_s, mask_t, zero_p,
-                          no_acol, wed, wfd, scale, mult_blend=mult,
-                          col_side=nnr)
+                          no_acol, wed, wfd, scale, col_side=nnr)
         n_valid = torch.clamp(sw.cnt, min=1.0)
         mean = sw.cd_sum / n_valid
         std = torch.sqrt(torch.clamp(sw.cd_sumsq / n_valid - mean * mean,
@@ -464,7 +460,7 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
             ok = ok & (mincd < penalty)
         w = ok.to(torch.float32)
         fsel = stream_selected(kps_c, kp_t_c, stream, sw.j1, wed, wfd,
-                               scale, mult)[2]
+                               scale)[2]
         return (MatchResult(tgt_idx=sw.j1, w=w, n_matches=w.sum()), fsel,
                 mincd, penalty, sw.ed_max)
 
@@ -890,7 +886,7 @@ def ghicp_register_batched(kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude,
     """One engine over P pairs on a leading axis: kp_s [P, S, 3], mask_s
     [P, S], kp_t [P, T, 3], mask_t [P, T], fd [P, S, T], bbx_magnitude
     [P], ``init_transform`` [P, 4, 4] (optional, with the shared schedule
-    offset ``it_shift``); the BSC and none features, with any matching.
+    offset ``it_shift``); every feature, with any matching.
     Both kernel flags are forced off, as in the JAX package: every pair
     runs the XLA lane (a KM auction bids through K6).
     Each iteration runs the body for every pair still going; a pair that
@@ -901,8 +897,6 @@ def ghicp_register_batched(kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude,
     dev = resolve_device(device)
     to = lambda x: torch.as_tensor(x).to(dev)
     kp_s, mask_s, kp_t, mask_t = _on_device(dev, kp_s, mask_s, kp_t, mask_t)
-    _check_lane(cfg, kp_s.shape[1], kp_t.shape[1], False, False,
-                batched=True)
     T0 = None if init_transform is None else to(init_transform)
     bbx = [float(x) for x in torch.as_tensor(bbx_magnitude).reshape(-1)]
     state = initial_state(kp_s, kp_t.shape[1], cfg, T0, it_shift)

@@ -1,13 +1,17 @@
-"""Multi-pair (station-graph) registration, BSC + KM.
+"""Multi-pair (station-graph) registration, with every feature and matching.
 
 The port of the JAX package's ``registration/graph.py``:
 
-* every station cloud is preprocessed and BSC-encoded once
-  (:class:`Station`, :func:`build_station`), with the full variant set so
-  it can act as source or target of any pair; keypoints are padded to one
-  capacity shared by all stations;
+* every station cloud is preprocessed and its features computed once
+  (:class:`Station`, :func:`build_station`): BSC with the full variant set
+  so it can act as source or target of any pair, FPFH histograms over the
+  downsampled cloud gathered at the keypoints, RoPS moments at the
+  keypoints, or none; keypoints are padded to one capacity shared by all
+  stations;
 * each requested pair runs the GH-ICP engine on the cached keypoints and
-  features, after a RANSAC coarse pose (:func:`_coarse_init_pair`):
+  the pair's feature matrix (:func:`station_pair_fd`: Hamming distances,
+  similarities or zeros), after a RANSAC coarse pose
+  (:func:`_coarse_init_pair`; none for feature "none"):
   sequentially through :func:`ghicp_register` on the kernel lane, or all
   pairs at once through :func:`ghicp_register_batched` (the XLA lane, its
   auction bidding through kernel K6);
@@ -16,7 +20,6 @@ The port of the JAX package's ``registration/graph.py``:
   station 0.
 
 Neither mode runs a final one-to-one matching, as in the JAX package.
-FPFH and RoPS stations are not ported yet.
 """
 from __future__ import annotations
 
@@ -28,20 +31,23 @@ import numpy as np
 import torch
 
 from ghicp_tpu_torch.core import transform as tf
-from ghicp_tpu_torch.core.config import (CorrespondenceType, FeatureType,
-                                         GHICPConfig)
+from ghicp_tpu_torch.core.config import FeatureType, GHICPConfig
 from ghicp_tpu_torch.core.device import resolve_device
 from ghicp_tpu_torch.core.types import (PointCloud, cloud_bounds,
                                         compact_device)
 from ghicp_tpu_torch.features.bsc import extract_bsc
+from ghicp_tpu_torch.features.fpfh import (fpfh_features,
+                                           fpfh_similarity_matrix)
 from ghicp_tpu_torch.features.hamming import min_hamming_fd
+from ghicp_tpu_torch.features.rops import (rops_features,
+                                           rops_similarity_matrix)
 from ghicp_tpu_torch.matching.ransac import ransac_coarse_align
 from ghicp_tpu_torch.preprocess.keypoints import (compact_candidates,
                                                   detect_keypoints,
                                                   refine_positions)
 from ghicp_tpu_torch.preprocess.pca import pca_features
 from ghicp_tpu_torch.preprocess.voxel import voxel_downsample
-from ghicp_tpu_torch.registration.ghicp import (GHICPResult,
+from ghicp_tpu_torch.registration.ghicp import (MULT_FEATURES, GHICPResult,
                                                 IterationMetrics,
                                                 ghicp_register,
                                                 ghicp_register_batched)
@@ -50,15 +56,18 @@ from ghicp_tpu_torch.registration.pipeline import _keypoint_arrays
 
 @dataclasses.dataclass
 class Station:
-    """One preprocessed scan: keypoints and their BSC features."""
+    """One preprocessed scan: keypoints and their features."""
 
     index: int
     kp_xyz: torch.Tensor        # [cap, 3]
     kp_mask: torch.Tensor       # [cap]
-    bsc_packed: torch.Tensor    # [V, cap, W]
+    bsc_packed: Optional[torch.Tensor]  # [V, cap, W] (BSC only)
     n_keypoints: int
     bbx_magnitude: float
-    frames: torch.Tensor        # [cap, 3, 3] BSC local frames
+    desc: Optional[torch.Tensor] = None    # [cap, D] FPFH histograms or
+                                           # RoPS moments
+    frames: Optional[torch.Tensor] = None  # [cap, 3, 3] BSC local frames
+                                           # (RANSAC pose hypotheses)
 
 
 @dataclasses.dataclass
@@ -75,19 +84,13 @@ class PairResult:
         return float(self.result.metrics.iou[it])
 
 
-def _check_supported(config: GHICPConfig) -> None:
-    if (config.feature != FeatureType.BSC
-            or config.correspondence != CorrespondenceType.KM):
-        raise NotImplementedError(
-            "the port's station graphs run BSC + KM only (FPFH and RoPS "
-            "stations are not ported yet)")
-
-
 def build_station(pts: np.ndarray, index: int, config: GHICPConfig,
                   capacity: int, device=None) -> Station:
     """Voxel downsample, PCA, curvature keypoints with exact NMS, refined
-    positions and BSC features (all variants) of one station cloud."""
-    _check_supported(config)
+    positions and the features of ``config.feature`` of one station cloud:
+    BSC (all variants, with its local frames), FPFH (over the downsampled
+    cloud with k = max(fpfh_k, 24), gathered at the keypoints), RoPS (at
+    the keypoints) or none."""
     dev = resolve_device(device)
     cloud = PointCloud.from_points(pts, device=dev)
     dcloud = compact_device(voxel_downsample(cloud, config.voxel_size))
@@ -103,27 +106,53 @@ def build_station(pts: np.ndarray, index: int, config: GHICPConfig,
         rr = config.refine_radius or 3.0 * config.voxel_size
         cc, curv = compact_candidates(dcloud, pca, res.candidates)
         kp_xyz = refine_positions(kp_xyz, kp_mask, cc, curv, radius=rr)
-    feats = extract_bsc(dcloud, kp_xyz, kp_mask, config,
-                        num_variants=config.bsc_num_variants)
+    packed = desc = frames = None
+    if config.feature == FeatureType.BSC:
+        feats = extract_bsc(dcloud, kp_xyz, kp_mask, config,
+                            num_variants=config.bsc_num_variants)
+        packed, frames = feats.packed, feats.frames
+    elif config.feature == FeatureType.FPFH:
+        radius = config.fpfh_radius or 3.0 * config.voxel_size
+        desc = fpfh_features(dcloud, radius, max(config.fpfh_k, 24))[0][
+            kp_idx]
+    elif config.feature == FeatureType.ROPS:
+        desc = rops_features(
+            dcloud, kp_xyz, kp_mask,
+            radius=config.rops_radius or float(config.non_max_radius),
+            neighbor_k=config.rops_neighbor_k,
+            n_rotations=config.rops_rotations, n_bins=config.rops_bins).desc
     return Station(index=index, kp_xyz=kp_xyz, kp_mask=kp_mask,
-                   bsc_packed=feats.packed, n_keypoints=nk,
-                   bbx_magnitude=bbx, frames=feats.frames)
+                   bsc_packed=packed, n_keypoints=nk, bbx_magnitude=bbx,
+                   desc=desc, frames=frames)
 
 
 def station_pair_fd(s: Station, t: Station, config: GHICPConfig):
-    """The [cap, cap] min-Hamming feature distance of a station pair (the
-    target side uses its variant 0 only)."""
-    return min_hamming_fd(s.bsc_packed, t.bsc_packed[:1],
-                          config.bsc_total_bits)
+    """The [cap, cap] feature matrix of a station pair: the min-Hamming
+    distance for BSC (the target side uses its variant 0 only), the
+    similarity for FPFH / RoPS, zeros for none."""
+    if config.feature == FeatureType.BSC:
+        return min_hamming_fd(s.bsc_packed, t.bsc_packed[:1],
+                              config.bsc_total_bits)
+    if config.feature == FeatureType.FPFH:
+        return fpfh_similarity_matrix(s.desc, t.desc)
+    if config.feature == FeatureType.ROPS:
+        return rops_similarity_matrix(s.desc, t.desc)
+    cap = s.kp_xyz.shape[0]
+    return torch.zeros((cap, cap), dtype=torch.float32,
+                       device=s.kp_xyz.device)
 
 
 def _coarse_init_pair(s: Station, t: Station, fd, config: GHICPConfig):
-    """RANSAC coarse pose for a station pair: (T0 or None, it_shift)."""
-    if config.coarse_init != "ransac":
+    """RANSAC coarse pose for a station pair: (T0 or None, it_shift); no
+    RANSAC for feature "none", a similarity turned into a distance
+    (1 - FD) for FPFH / RoPS."""
+    if config.coarse_init != "ransac" or config.feature == FeatureType.NONE:
         return None, 0.0
+    fd_dist = 1.0 - fd if config.feature in MULT_FEATURES else fd
     tau = config.ransac_tau or 3.0 * config.voxel_size
-    rr = ransac_coarse_align(s.kp_xyz, s.kp_mask, t.kp_xyz, t.kp_mask, fd,
-                             tau=tau, n_hyp=config.ransac_hypotheses,
+    rr = ransac_coarse_align(s.kp_xyz, s.kp_mask, t.kp_xyz, t.kp_mask,
+                             fd_dist, tau=tau,
+                             n_hyp=config.ransac_hypotheses,
                              frames_s=s.frames, frames_t=t.frames)
     if rr.inliers >= config.ransac_min_inliers:
         # skip the feature-dominant schedule phase (W_FD from e^-3)
@@ -153,7 +182,6 @@ def register_graph(clouds: Sequence[np.ndarray],
     engine over them (:func:`ghicp_register_batched`); pairs whose RANSAC
     found no consensus start from the identity with the shared schedule
     offset."""
-    _check_supported(config)
     dev = resolve_device(device)
     cap = keypoint_capacity or config.keypoint_capacity or 2048
     stations = [build_station(p, i, config, cap, dev)

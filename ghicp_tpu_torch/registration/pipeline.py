@@ -235,8 +235,7 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
                 rsel = torch.arange(0, cap, -(-cap // config.ransac_max_rows),
                                     device=dev)
                 cand, cand_ok = stream_feature_candidates(
-                    subset_rows(stream, rsel), kp_s_mask[rsel], kp_t_mask,
-                    mult_blend=mult)
+                    subset_rows(stream, rsel), kp_s_mask[rsel], kp_t_mask)
                 rr_ = ransac_coarse_align(
                     kp_s[rsel], kp_s_mask[rsel], kp_t, kp_t_mask, None,
                     tau=tau, n_hyp=config.ransac_hypotheses,

@@ -1,7 +1,7 @@
 """The engine's XLA lane (ED and BSC blend as tensor passes, the Jacobi
 auction through the top-2 of kernel K6's contract) against the JAX
 package's non-fused engine, one pair and a batch of pairs, and the lane
-gate of ``make_body``."""
+gate of ``make_body``; the FPFH blend on the batched engine."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -14,6 +14,7 @@ import ghicp_tpu_torch.matching.auction as tau
 import ghicp_tpu_torch.registration.ghicp as tgh
 from ghicp_tpu.core.config import (CorrespondenceType, FeatureType,
                                    GHICPConfig)
+from ghicp_tpu.registration.pipeline import transform_error
 from ghicp_tpu_torch.interop import config_from_dict
 from ghicp_tpu_torch.io.synthetic import registration_problem
 
@@ -180,3 +181,36 @@ def test_batched_none_matches_jax_and_single_pairs(corr):
         np.testing.assert_allclose(M.transform[i].numpy(),
                                    single.transform.numpy(), atol=5e-3)
         assert float(M.final_rmse[i]) < 0.1
+
+
+def test_batched_fpfh_matches_jax():
+    """The multiplicative (FPFH) blend on the batched engine, two pairs at
+    512 slots, a similarity FD (1 - Hamming / 441): iterations, the
+    matched counts and the poses (atol 5e-3, as the BSC batch above)
+    against the JAX package's vmapped engine, each pose near its truth."""
+    P, S = 2, 512
+    probs = [registration_problem(S, S, seed=30 + k, rot_deg=(4.0, 8.0)[k])
+             for k in range(P)]
+    stack = lambda i: np.stack([p[i] for p in probs])
+    kp_s, kp_t = stack(0), stack(1)
+    sim = (1.0 - stack(2) / 441.0).astype(np.float32)
+    ms = np.ones((P, S), bool)
+    ms[1, -9:] = False
+    mt = np.ones((P, S), bool)
+    bbx = np.float32([40.0, 45.0])
+    cfg = GHICPConfig(feature=FeatureType.FPFH,
+                      correspondence=CorrespondenceType.KM,
+                      max_iterations=20)
+    J = jgh.ghicp_register_batched(*(jnp.asarray(x) for x in (
+        kp_s, ms, kp_t, mt, sim, bbx)), cfg)
+    M = tgh.ghicp_register_batched(kp_s, ms, kp_t, mt, sim, bbx, _port(cfg),
+                                   device="cpu")
+    np.testing.assert_array_equal(M.iterations.numpy(),
+                                  np.asarray(J.iterations))
+    np.testing.assert_array_equal(M.metrics.cor.numpy(),
+                                  np.asarray(J.metrics.cor))
+    np.testing.assert_allclose(M.transform.numpy(), np.asarray(J.transform),
+                               atol=5e-3)
+    for k in range(P):
+        rot, tr = transform_error(M.transform[k].numpy(), probs[k][5])
+        assert rot < 0.5 and tr < 0.1, (k, rot, tr)

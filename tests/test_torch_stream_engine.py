@@ -116,7 +116,8 @@ _CFG = GHICPConfig(feature=FeatureType.BSC,
 
 
 def test_register_pair_streaming_matches_jax():
-    src, tgt, T_gt = _pair(seed=FeatureType.BSC.value.__hash__() % 7)
+    # a fixed pair (the JAX test's seed is a salted string hash)
+    src, tgt, T_gt = _pair(seed=0)
     got = register_pair(src, tgt, config_from_dict(dataclasses.asdict(_CFG)),
                         device="cpu")
     assert got.streaming

@@ -177,9 +177,8 @@ def _col_args(p, lane):
              SCALE)
     targs = (_t(p["kp_s"]), _t(p["kp_t"]), tf, _t(p["ms"]), _t(p["mt"]),
              _t(p["prices"]), _t(p["acol"]), wed, wfd, SCALE)
-    # the port takes the none lane from the type of its features
-    return jargs, targs, kw, {k: v for k, v in kw.items()
-                              if k != "no_features"}
+    # the port takes the lane from the type of its features
+    return jargs, targs, kw
 
 
 LANES = ["hamming", "similarity", "none"]
@@ -197,9 +196,9 @@ def test_sweep_col_side_matches_jax_ref(col_problem, lane):
     equal on every column whose two least CDs differ by more than 1e-5
     relative and on the planted exact ties, which the lower row wins."""
     p = col_problem
-    jargs, targs, jkw, kw = _col_args(p, lane)
+    jargs, targs, jkw = _col_args(p, lane)
     want = jax_sweep_ref(*jargs, tc=128, col_side=True, **jkw)
-    got = stream_sweep(*targs, col_side=True, **kw)
+    got = stream_sweep(*targs, col_side=True)
     tol = (dict(rtol=1e-6) if lane == "hamming"
            else dict(rtol=1e-5, atol=5e-5))
     for k in ("v1", "v2", "vsel"):
@@ -249,7 +248,7 @@ def _dense_cd(p, lane, targs):
 def test_sweep_col_side_is_tile_independent(col_problem, lane):
     """cmin / crow (and every other output) do not depend on the column
     block width, and ``col_side`` changes none of the other outputs."""
-    _, targs, _, kw = _col_args(col_problem, lane)
+    _, targs, _ = _col_args(col_problem, lane)
     a = stream_sweep_plain(*targs, tc=256, col_side=True)
     b = stream_sweep_plain(*targs, tc=48, col_side=True)
     c = stream_sweep_plain(*targs, tc=100)
@@ -259,8 +258,8 @@ def test_sweep_col_side_is_tile_independent(col_problem, lane):
     for k in ("v1", "j1", "v2", "j2", "vsel", "cnt", "ed_max", "fd_max"):
         assert torch.equal(getattr(a, k), getattr(c, k)), k
     assert c.cmin is None and c.crow is None
-    with pytest.raises(TypeError):
-        stream_sweep(*targs, mult_blend=not kw.get("mult_blend", False))
+    with pytest.raises(TypeError):          # not a lane's feature type
+        stream_sweep(*targs[:2], tuple(targs[2]), *targs[3:])
 
 
 def test_col_side_matches_dense_argmin():
@@ -391,7 +390,7 @@ def test_sweep_mult_matches_jax_ref(problem, desc_problem, std):
                          1.0, K_MULT, SCALE, tc=128, mult_blend=True)
     got = stream_sweep(_t(p["kp_s"]), _t(p["kp_t"]), d["tf"], _t(p["ms"]),
                        _t(p["mt"]), _t(p["prices"]), _t(p["acol"]), 1.0,
-                       K_MULT, SCALE, mult_blend=True)
+                       K_MULT, SCALE)
     for k in ("v1", "v2", "vsel"):
         np.testing.assert_allclose(getattr(got, k).numpy(),
                                    np.asarray(getattr(want, k)), rtol=1e-5,
@@ -426,8 +425,9 @@ def test_sweep_mult_is_tile_independent(problem, desc_problem):
                            1.0, K_MULT, SCALE)
     for k in ("v1", "j1", "v2", "j2", "vsel"):
         assert torch.equal(getattr(c, k), getattr(a, k)[idx]), k
-    with pytest.raises(TypeError):
-        stream_sweep(*args)                 # DescFeatures without mult_blend
+    with pytest.raises(TypeError):          # not a lane's feature type
+        stream_selected(args[0], args[1], d["tf"].fs, args[6], 1.0, K_MULT,
+                        SCALE)
 
 
 def test_selected_mult_matches_jax(problem, desc_problem):
@@ -437,7 +437,7 @@ def test_selected_mult_matches_jax(problem, desc_problem):
                         d["jf"], jnp.asarray(tgt), 1.0, K_MULT, SCALE,
                         mult_blend=True)
     got = stream_selected(_t(p["kp_s"]), _t(p["kp_t"]), d["tf"], _t(tgt),
-                          1.0, K_MULT, SCALE, mult_blend=True)
+                          1.0, K_MULT, SCALE)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
                                    atol=1e-6)
@@ -449,8 +449,7 @@ def test_feature_candidates_mult_match_jax(problem, desc_problem, std):
     cand, ok = jax_cand(d["jf"], jnp.asarray(p["ms"]), jnp.asarray(p["mt"]),
                         mult_blend=True, tc=128)
     got, got_ok = stream_feature_candidates(d["tf"], _t(p["ms"]),
-                                            _t(p["mt"]), mult_blend=True,
-                                            tc=64)
+                                            _t(p["mt"]), tc=64)
     np.testing.assert_array_equal(got_ok.numpy(), np.asarray(ok))
     np.testing.assert_array_equal(got.numpy()[:, 0], np.asarray(cand)[:, 0])
     assert np.mean(got.numpy()[:, 1] == np.asarray(cand)[:, 1]) >= 0.99
