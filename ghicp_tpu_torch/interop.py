@@ -19,7 +19,7 @@ from ghicp_tpu_torch.core.config import (CorrespondenceType, FeatureType,
 from ghicp_tpu_torch.features.bsc import pack_bits
 from ghicp_tpu_torch.matching.stream_auction import StreamCarry, carry_init
 from ghicp_tpu_torch.ops.stream_kernel import (DescFeatures, StreamFeatures,
-                                               to_words)
+                                               stream_features, to_words)
 from ghicp_tpu_torch.registration.ghicp import IterationMetrics, _State
 
 _ENUMS = {"feature": FeatureType, "correspondence": CorrespondenceType}
@@ -56,11 +56,10 @@ def stream_features_from_numpy(fs, ft, na, nb, n_bits: int = 441,
     n_words = -(-n_bits // 32)
     bits = lambda x: torch.tensor(
         np.asarray(x)[..., :32 * n_words].astype(np.int64), device=device)
-    return StreamFeatures(
-        words_s=to_words(pack_bits(bits(fs))).contiguous(),
-        words_t=to_words(pack_bits(bits(ft))).contiguous(),
-        na=torch.tensor(np.asarray(na, np.float32), device=device),
-        nb=torch.tensor(np.asarray(nb, np.float32), device=device))
+    return stream_features(
+        to_words(pack_bits(bits(fs))), to_words(pack_bits(bits(ft))),
+        torch.tensor(np.asarray(na, np.float32), device=device),
+        torch.tensor(np.asarray(nb, np.float32), device=device))
 
 
 def desc_features_from_numpy(fs, ft, dim: int, device="cpu") -> DescFeatures:

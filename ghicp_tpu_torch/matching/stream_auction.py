@@ -107,6 +107,17 @@ def _resolve_round(v1, j1, v2, eps_r, sink, owner, acol, p):
             torch.where(has, win_bid, p))
 
 
+def sweep_moments(sw):
+    """(mean, std) of CD over a sweep's valid pairs.  Raises if the sweep
+    ran without its statistics (``with_stats=False``: NaN)."""
+    if bool(torch.isnan(sw.cnt)):
+        raise ValueError("sweep_moments: the sweep ran with_stats=False")
+    cnt = torch.clamp(sw.cnt, min=1.0)
+    mean = sw.cd_sum / cnt
+    return mean, torch.sqrt(torch.clamp(sw.cd_sumsq / cnt - mean * mean,
+                                        min=0.0))
+
+
 def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
                  penalty_from_stats: Callable, eps_final: float,
                  rel_eps: float, max_sweeps: int, p0, price_uncertainty,
@@ -137,15 +148,16 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
 
     n_compact = 0
 
-    def sweep_fn(p, ac):
+    def sweep_fn(p, ac, with_stats=False):
         return stream_sweep(kp_s, kp_t, feats, mask_s, mask_t, p, ac, wed,
-                            wfd, scale)
+                            wfd, scale, with_stats=with_stats)
 
     def sub_sweep(idx, sub_mask, p, ac_sub):
         nonlocal n_compact
         n_compact += 1
         return stream_sweep(kp_s[idx], kp_t, subset_rows(feats, idx),
-                            sub_mask, mask_t, p, ac_sub, wed, wfd, scale)
+                            sub_mask, mask_t, p, ac_sub, wed, wfd, scale,
+                            with_stats=False)
 
     # --- sweep 0: statistics + warm-start hints at mid-deflated prices ---
     real0 = (acol0 >= 0) & (acol0 < C)
@@ -176,11 +188,8 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
         sw0_v2 = torch.full((S,), NEG, dtype=torch.float32, device=dev)
         swept0 = False
     else:
-        sw0 = sweep_fn(p_mid, acol0)
-        cnt = torch.clamp(sw0.cnt, min=1.0)
-        cd_mean = sw0.cd_sum / cnt
-        cd_std = torch.sqrt(torch.clamp(sw0.cd_sumsq / cnt
-                                        - cd_mean * cd_mean, min=0.0))
+        sw0 = sweep_fn(p_mid, acol0, with_stats=True)
+        cd_mean, cd_std = sweep_moments(sw0)
         penalty = penalty_from_stats(cd_mean, cd_std)
         b_max, ed_max, fd_max = sw0.b_max, sw0.ed_max, sw0.fd_max
         v1_base, vsel0, sw0_j1, sw0_v2 = sw0.v1, sw0.vsel, sw0.j1, sw0.v2

@@ -7,7 +7,9 @@ through; the FPFH/RoPS (multiplicative-blend) variants of K1, K3 and K5
 count under their own ``*_mult`` names, the float32 variants of K1-K3
 (the ``auction_bf16=False`` lane) and of K7 / K8 under ``*_f32``, K5's
 feature-"none" variant under ``stream_sweep_none`` and its column-side
-variants under ``*_col``.
+variants under ``*_col``; each K5 launch also counts under
+``<name>@<rows>``, the rows it swept, so that full-height and compacted
+sweeps can be told apart.
 """
 from __future__ import annotations
 

@@ -22,12 +22,14 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # No --use_fast_math and no FMA contraction: the kernels must round every
-# operation the way the plain PyTorch versions do.
+# operation the way the plain PyTorch versions do.  -Xptxas=-v reports each
+# kernel's registers, shared memory and spills (kept in BUILD_LOGS).
 NVCC_FLAGS = [ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-fmad=false"]
+              "-fmad=false", "-Xptxas=-v"]
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
+BUILD_LOGS: dict = {}    # source name -> nvcc's output of this process's build
 
 
 def _nvcc() -> str:
@@ -68,6 +70,7 @@ def _finish(out: Path, job) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {out.name}:\n{log}")
+    BUILD_LOGS[out.name.rsplit("-", 1)[0]] = log
     os.replace(tmp, out)
 
 
@@ -104,6 +107,19 @@ def triton_cache() -> None:
     """Keep Triton's compile cache under the package's build directory
     (set before ``triton`` is first imported)."""
     os.environ["TRITON_CACHE_DIR"] = str(BUILD / "triton")
+
+
+def ptxas_report(name: str, kernel: str) -> list[str]:
+    """ptxas's lines (registers, stack, spills) for the kernels of
+    ``csrc/<name>.cu`` whose mangled name holds ``kernel``, from this
+    process's build (empty if the library was already built)."""
+    out, keep = [], False
+    for line in BUILD_LOGS.get(name, "").splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            keep = kernel in line
+        if keep:
+            out.append(line.strip())
+    return out
 
 
 def check(rc: int, what: str) -> None:

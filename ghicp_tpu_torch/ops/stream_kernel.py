@@ -17,26 +17,30 @@ every target column, without materializing [S, C]:
 and keeps per row the top-2 of v (v1, j1, v2, j2; the lowest column on
 exact ties), v at the previous assignment ``acol`` (vsel), and the
 statistics count, sum CD, sum CD^2, max CD, max ED, max -CD and max FD
-over valid pairs.  The features stay packed: 32 bits a word, ``W`` words a
-row (14 for the 441 BSC bits).  For {0, 1} bits, |a| + |b| - 2 a.b =
-popc(a XOR b) exactly, so the plain version's float32 product of the
-unpacked bits and the kernel's XOR + POPC give the same integers.  On
-the similarity lane a product of two bf16 values is exact in float32, so
-only the order of the sum over the D dimensions matters: both versions
-add them in increasing order, and the plain one never calls a matrix
-product, whose order is its own.
+over valid pairs (``with_stats=False``: not computed, NaN).  The BSC
+features come in two forms: packed, 32 bits a word, ``W`` words a row (14
+for the 441 bits), and unpacked, one {0, 1} int8 a bit, 448 a row.  For
+{0, 1} bits, |a| + |b| - 2 a.b = popc(a XOR b) exactly, so the plain
+version's float32 product of the unpacked bits, the tensor-core kernel's
+int8 product and the column-side kernel's XOR + POPC give the same
+integers.  On the similarity lane a product of two bf16 values is exact in
+float32, so only the order of the sum over the D dimensions matters: both
+versions add them in increasing order, and the plain one never calls a
+matrix product, whose order is its own.
 
-Bound on this card: integer operations on the Hamming lane, V * W * (XOR
-+ POPC + add) a pair; float operations on the similarity lane, 2 D a pair
-plus the blend; on the feature-"none" lane (:class:`NoFeatures`, no
-factor is read, CD = W_ED * ED) the float operations of ED, the blend,
-the top-2 and the statistics.  The bytes (coordinates and factors, read
-once) are a few MB.  ``col_side`` (every lane; the reciprocal-NN matcher)
-adds per column the least CD over valid rows and the lowest row that
-reaches it (``cmin`` / ``crow``).  The design notes are at the head of the
-CUDA source.  Every variant counts its launches under its own name
-(``stream_sweep``, ``stream_sweep_mult``, ``stream_sweep_none``, each with
-a ``_col`` twin).
+Bound on this card: the Hamming lane's int8 products on the tensor cores
+(2 x 448 operations a variant and pair) or its float epilogue, whichever
+is slower; float operations on the similarity lane, 2 D a pair plus the
+blend; on the feature-"none" lane (:class:`NoFeatures`, no factor is
+read, CD = W_ED * ED) the float operations of ED, the blend and the
+top-2.  The bytes (coordinates and factors, read once) are a few MB.
+``col_side`` (every lane; the reciprocal-NN matcher) adds per column the
+least CD over valid rows and the lowest row that reaches it (``cmin`` /
+``crow``).  The design notes are at the head of the CUDA source.  Every
+variant counts its launches under its own name (``stream_sweep``,
+``stream_sweep_mult``, ``stream_sweep_none``, each with a ``_col`` twin),
+and once more under ``<name>@<rows>``, its rows, so that full-height and
+compacted sweeps can be priced apart.
 
 :func:`stream_selected` (matched-pair gathers),
 :func:`stream_feature_candidates` (the RANSAC candidates; a ``lax.scan``
@@ -61,20 +65,30 @@ NO_ROW = 2**30      # its crow
 # the kernel's column key of such a column: (bits(float32 NO_COL) << 32) |
 # NO_ROW
 _COL_KEY0 = (struct.unpack("<I", struct.pack("<f", NO_COL))[0] << 32) | NO_ROW
-RT = 128        # rows a block of the kernel (the compaction granule)
-TC = 128        # columns a staged tile of the kernel
+RT = 64         # rows a block of the Hamming kernel (the compaction granule)
+HAM_TC = 64     # columns a tile of the Hamming kernel
+NONE_RT = 128   # rows a block of the none kernel
+NONE_TC = 128   # columns a tile of the none kernel
+COL_RT = 128    # rows a block of the per-pair kernels (column side, mult)
+TC = 128        # columns a tile of the per-pair kernels
 PLAIN_TC = 1024
 _KERNEL_SHAPES = {(1, 14), (2, 14), (4, 14)}    # (V, W) instantiated
+BIT_ROW = 448   # unpacked bits a row: 14 words of 32
 _M32 = 0xFFFFFFFF
 
 
 class StreamFeatures(NamedTuple):
-    """Packed factor representation of the BSC feature distance."""
+    """Factor representation of the BSC feature distance: the bits packed
+    (the plain version, gathers, the column-side kernel) and unpacked (the
+    tensor-core kernel), made once a registration."""
 
     words_s: torch.Tensor   # [V, S, W] int32 source bits (variants)
     words_t: torch.Tensor   # [C, W] int32 target bits (variant 0)
     na: torch.Tensor        # [V, S] float32 popcounts
     nb: torch.Tensor        # [C] float32 popcounts
+    bits_s: torch.Tensor    # [V, S, 32 W] int8 {0, 1}, bit k of word w at
+                            # 32 w + k
+    bits_t: torch.Tensor    # [C, 32 W] int8
 
 
 class DescFeatures(NamedTuple):
@@ -113,6 +127,10 @@ class SweepResult(NamedTuple):
     crow: Optional[torch.Tensor] = None
 
 
+STAT_FIELDS = ("cnt", "cd_sum", "cd_sumsq", "cd_max", "ed_max", "b_max",
+               "fd_max")
+
+
 def to_words(packed: torch.Tensor) -> torch.Tensor:
     """int64 words holding 32 bits each -> int32 words (same bits)."""
     p = packed.to(torch.int64) & _M32
@@ -135,6 +153,22 @@ def unpack_words(words: torch.Tensor) -> torch.Tensor:
     return b.reshape(*words.shape[:-1], -1).to(torch.float32)
 
 
+def unpack_bits8(words: torch.Tensor) -> torch.Tensor:
+    """[..., W] int32 words -> [..., 32 W] int8 {0, 1} bits (contiguous)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    b = (words.to(torch.int32)[..., None] >> shifts) & 1
+    return b.reshape(*words.shape[:-1], -1).to(torch.int8).contiguous()
+
+
+def stream_features(words_s: torch.Tensor, words_t: torch.Tensor,
+                    na: torch.Tensor, nb: torch.Tensor) -> StreamFeatures:
+    """The BSC factors from int32 words (``words_s`` [V, S, W], ``words_t``
+    [C, W]) and their popcounts, with the unpacked bit rows."""
+    ws, wt = words_s.contiguous(), words_t.contiguous()
+    return StreamFeatures(words_s=ws, words_t=wt, na=na, nb=nb,
+                          bits_s=unpack_bits8(ws), bits_t=unpack_bits8(wt))
+
+
 def make_stream_features(packed_s: torch.Tensor,
                          packed_t: torch.Tensor) -> StreamFeatures:
     """Factors from packed BSC bits (zero beyond the last bit):
@@ -143,8 +177,7 @@ def make_stream_features(packed_s: torch.Tensor,
     ws, wt = to_words(packed_s), to_words(packed_t[0])
     na = popcount32(ws.to(torch.int64)).sum(dim=-1).to(torch.float32)
     nb = popcount32(wt.to(torch.int64)).sum(dim=-1).to(torch.float32)
-    return StreamFeatures(words_s=ws.contiguous(), words_t=wt.contiguous(),
-                          na=na, nb=nb)
+    return stream_features(ws, wt, na, nb)
 
 
 def make_desc_features(desc_s: torch.Tensor, desc_t: torch.Tensor,
@@ -180,7 +213,8 @@ def subset_rows(feats, idx: torch.Tensor):
     if isinstance(feats, DescFeatures):
         return feats._replace(fs=feats.fs[idx].contiguous())
     return feats._replace(words_s=feats.words_s[:, idx].contiguous(),
-                          na=feats.na[:, idx])
+                          na=feats.na[:, idx],
+                          bits_s=feats.bits_s[:, idx].contiguous())
 
 
 def _ham_block(fs_bits, na, ft_bits, nb_blk) -> torch.Tensor:
@@ -205,23 +239,39 @@ def _sim_block(fs, ft_blk, dim: int) -> torch.Tensor:
     return acc.abs_()
 
 
-def _merge_top2(state, v, off: int):
-    """Fold one column block's values into the running (v1, j1, v2, j2),
-    in the JAX package's order (lowest column on exact ties)."""
-    v1, j1, v2, j2 = state
-    cols = off + torch.arange(v.shape[1], device=v.device)
+def _lex_better(va, ja, vb, jb):
+    return (va > vb) | ((va == vb) & (ja < jb))
+
+
+def lex_merge_top2(a, b):
+    """The top-2 (v1, j1, v2, j2) of the union of two disjoint column sets
+    under (value desc, column asc), from each set's top-2: the same in
+    whatever order the sets come (the kernels' ``lex_merge``)."""
+    av1, aj1, av2, aj2 = a
+    bv1, bj1, bv2, bj2 = b
+    bfirst = _lex_better(bv1, bj1, av1, aj1)
+    ka = _lex_better(av1, aj1, bv2, bj2)    # a's best second after b's
+    kb = _lex_better(bv1, bj1, av2, aj2)    # b's best second after a's
+    return (torch.where(bfirst, bv1, av1), torch.where(bfirst, bj1, aj1),
+            torch.where(bfirst, torch.where(ka, av1, bv2),
+                        torch.where(kb, bv1, av2)),
+            torch.where(bfirst, torch.where(ka, aj1, bj2),
+                        torch.where(kb, bj1, aj2)))
+
+
+def _merge_top2(state, v, cols):
+    """Fold one block of columns into the running (v1, j1, v2, j2) with
+    the lowest column on exact ties: ``v`` [S, c] at the columns ``cols``
+    (an offset of c consecutive columns, or [c] increasing ids).  The
+    block's top-2 is merged under (value desc, column asc), so blocks may
+    come in any order."""
+    if isinstance(cols, int):
+        cols = cols + torch.arange(v.shape[1], device=v.device)
     m1, a1 = v.max(dim=1)
-    a1 = a1 + off
-    vm = torch.where(cols[None, :] == a1[:, None], NEG, v)
+    vm = v.clone()
+    vm.scatter_(1, a1[:, None], NEG)
     m2, a2 = vm.max(dim=1)
-    a2 = a2 + off
-    take = (m1 > v1) | ((m1 == v1) & (a1 < j1))
-    nv1 = torch.maximum(v1, m1)
-    nj1 = torch.where(take, a1, j1)
-    nv2 = torch.maximum(torch.minimum(v1, m1), torch.maximum(v2, m2))
-    nj2 = torch.where(take, torch.where(v1 >= m2, j1, a2),
-                      torch.where(m1 > v2, a1, j2))
-    return nv1, nj1, nv2, nj2
+    return lex_merge_top2(state, (m1, cols[a1], m2, cols[a2]))
 
 
 def _top2_init(S: int, dev):
@@ -242,11 +292,13 @@ def _col_block(cd, m, rows):
 
 def stream_sweep_plain(kp_s, kp_t, feats, mask_s, mask_t, prices, acol,
                        wed, wfd, scale, tc: int = PLAIN_TC,
-                       col_side: bool = False) -> SweepResult:
+                       col_side: bool = False,
+                       with_stats: bool = True) -> SweepResult:
     """Plain PyTorch version of K5: column blocks of ``tc`` (the JAX
     package's ``stream_sweep_ref``), statistics summed in float64; the
     similarity lane when ``feats`` is a :class:`DescFeatures`, the none
-    lane for :class:`NoFeatures`; ``col_side`` adds ``cmin`` / ``crow``."""
+    lane for :class:`NoFeatures`; ``col_side`` adds ``cmin`` / ``crow``;
+    ``with_stats=False`` returns NaN statistics."""
     S, C = kp_s.shape[0], kp_t.shape[0]
     dev = kp_s.device
     ks, kt = _factors(kp_s), _factors(kp_t)
@@ -301,8 +353,12 @@ def stream_sweep_plain(kp_s, kp_t, feats, mask_s, mask_t, prices, acol,
     if col_side:
         cmin = torch.cat([c for c, _ in col_parts])
         crow = torch.cat([r for _, r in col_parts])
-    return SweepResult(v1, j1, v2, j2, vsel, f(cnt.to(torch.float64)), f(s1),
-                       f(s2), cmax, emax, bmax, fmax, cmin, crow)
+    res = SweepResult(v1, j1, v2, j2, vsel, f(cnt.to(torch.float64)), f(s1),
+                      f(s2), cmax, emax, bmax, fmax, cmin, crow)
+    if with_stats:
+        return res
+    nan = torch.full((), float("nan"), dtype=torch.float32, device=dev)
+    return res._replace(**{k: nan for k in STAT_FIELDS})
 
 
 # ---------------------------------------------------------------------------
@@ -323,27 +379,43 @@ def _lib():
                                           + [_F] * 2 + [_I] * 4
                                           + [_VP] * 13)
         lib.stream_sweep_desc.restype = _I
+        lib.stream_sweep_tiled.argtypes = ([_VP] * 11 + [_F] * 3 + [_I] * 6
+                                           + [_VP] * 12)
+        lib.stream_sweep_tiled.restype = _I
         lib._typed = True
     return lib
 
 
-def column_splits(S: int, C: int, n_sm: int) -> int:
-    """Column ranges a row block is split into, so that short row sets
-    (compacted sweeps) still give every SM two blocks."""
-    n_rt = -(-S // RT)
-    n_ct = -(-C // TC)
-    return max(1, min(n_ct, -(-2 * n_sm // n_rt)))
+def column_splits(S: int, C: int, n_sm: int, rows: int = COL_RT,
+                  cols: int = TC, per_sm: int = 2) -> int:
+    """Column ranges a row block of ``rows`` is split into (tiles of
+    ``cols``), so that short row sets (compacted sweeps) still give every
+    SM ``per_sm`` blocks; no range is left empty."""
+    n_rt = -(-S // rows)
+    n_ct = -(-C // cols)
+    cs = max(1, min(n_ct, -(-per_sm * n_sm // n_rt)))
+    return -(-n_ct // -(-n_ct // cs))
+
+
+# The tiled kernels' grids hold ~16 blocks an SM (split over columns when
+# the rows are few): the last wave of equal blocks then leaves at most
+# about a sixteenth of the card idle.
+_TILED_PER_SM = 16
 
 
 def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
-                      wfd, scale, col_side: bool = False) -> SweepResult:
+                      wfd, scale, col_side: bool = False,
+                      with_stats: bool = True) -> SweepResult:
     """Launch K5 on the card (the similarity lane for a
-    :class:`DescFeatures`, the none lane for :class:`NoFeatures`)."""
+    :class:`DescFeatures`, the none lane for :class:`NoFeatures`): the
+    tiled kernels for the Hamming and none lanes, the per-pair ones for the
+    column side and the similarity lane."""
     from ghicp_tpu_torch.ops._build import check, ptr
     S, C = kp_s.shape[0], kp_t.shape[0]
     dev = kp_s.device
     f32, i32 = torch.float32, torch.int32
     mult = isinstance(feats, DescFeatures)
+    tiled = not (mult or col_side)
     if mult:
         F = feats.fs.shape[1]
         if not 0 < feats.dim <= F or F % 8:
@@ -359,8 +431,19 @@ def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
         if (V, W) not in _KERNEL_SHAPES:
             raise ValueError(f"stream_sweep kernel: (V, W) = ({V}, {W}) not "
                              f"in {sorted(_KERNEL_SHAPES)}")
-        ws = feats.words_s.to(device=dev, dtype=i32).contiguous()
-        wt = as_rows(feats.words_t, C, W, i32, dev, "words_t")
+        if tiled:
+            bs = feats.bits_s.to(device=dev, dtype=torch.int8).contiguous()
+            if tuple(bs.shape) != (V, S, BIT_ROW):
+                raise ValueError(f"bits_s: expected {(V, S, BIT_ROW)}, got "
+                                 f"{tuple(bs.shape)}")
+            bt = as_rows(feats.bits_t, C, BIT_ROW, torch.int8, dev,
+                         "bits_t")
+            wt = as_rows(feats.words_t, C, W, i32, dev, "words_t")
+            na = feats.na.to(device=dev, dtype=f32).contiguous()
+            nb = as_rows(feats.nb, C, 0, f32, dev, "nb")
+        else:
+            ws = feats.words_s.to(device=dev, dtype=i32).contiguous()
+            wt = as_rows(feats.words_t, C, W, i32, dev, "words_t")
     ks = _factors(as_rows(kp_s, S, 3, f32, dev, "kp_s"))
     kt = _factors(as_rows(kp_t, C, 3, f32, dev, "kp_t"))
     ms = as_rows(mask_s, S, 0, i32, dev, "mask_s")
@@ -369,7 +452,12 @@ def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
     ac = as_rows(torch.clamp(acol.to(torch.int64), -1, 2**31 - 1), S, 0, i32,
                  dev, "acol")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    cs = column_splits(S, C, n_sm)
+    if not tiled:
+        rows = COL_RT
+        cs = column_splits(S, C, n_sm)
+    else:
+        rows, cols = (NONE_RT, NONE_TC) if V == 0 else (RT, HAM_TC)
+        cs = column_splits(S, C, n_sm, rows, cols, _TILED_PER_SM)
     v1 = torch.empty((S,), dtype=f32, device=dev)
     j1 = torch.empty((S,), dtype=i32, device=dev)
     v2 = torch.empty((S,), dtype=f32, device=dev)
@@ -380,7 +468,7 @@ def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
                  for t in (f32, i32, f32, i32, f32)]
     else:
         parts = [v1, j1, v2, j2, vsel]
-    n_blocks = -(-S // RT) * cs
+    n_blocks = -(-S // rows) * cs
     stats = torch.empty((n_blocks, 8), dtype=torch.float64, device=dev)
     colkey = (torch.full((C,), _COL_KEY0, dtype=torch.int64, device=dev)
               if col_side else None)
@@ -393,6 +481,15 @@ def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
             ptr(ks), ptr(kt), ptr(fs), ptr(ft), feats.dim, F, ptr(ms),
             ptr(mt), ptr(p), ptr(ac), _f32(wfd), _f32(scale), S, C, cs,
             n_blocks, *outs)
+    elif tiled:
+        ham = V > 0
+        rc = _lib().stream_sweep_tiled(
+            ptr(ks), ptr(kt), vp(bs if ham else None),
+            vp(bt if ham else None), vp(wt if ham else None),
+            vp(na if ham else None),
+            vp(nb if ham else None), ptr(ms), ptr(mt), ptr(p), ptr(ac),
+            _f32(wed), _f32(wfd), _f32(scale), S, C, V, cs, n_blocks,
+            int(with_stats), *outs[:-2], _VP(stream))
     else:
         rc = _lib().stream_sweep(
             ptr(ks), ptr(kt), vp(ws), vp(wt), ptr(ms), ptr(mt), ptr(p),
@@ -401,20 +498,26 @@ def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
     check(rc, "stream_sweep launch")
     name = ("stream_sweep_mult" if mult else "stream_sweep_none"
             if V == 0 else "stream_sweep")
-    count_launch(name + "_col" if col_side else name)
-    tot = stats[:, :3].sum(dim=0).to(f32)
-    mx = stats[:, 3:7].amax(dim=0).to(f32)
+    name = name + "_col" if col_side else name
+    count_launch(name)
+    count_launch(f"{name}@{S}")
     cmin = crow = None
     if col_side:
         cmin = (colkey >> 32).to(i32).view(f32)
         crow = colkey & _M32
+    if with_stats:
+        tot = stats[:, :3].sum(dim=0).to(f32)
+        mx = stats[:, 3:7].amax(dim=0).to(f32)
+    else:
+        tot = mx = (torch.full((), float("nan"), dtype=f32, device=dev),) * 4
     return SweepResult(v1, j1.to(torch.int64), v2, j2.to(torch.int64), vsel,
                        tot[0], tot[1], tot[2], mx[0], mx[1], mx[2], mx[3],
                        cmin, crow)
 
 
 def stream_sweep(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed, wfd,
-                 scale, col_side: bool = False) -> SweepResult:
+                 scale, col_side: bool = False,
+                 with_stats: bool = True) -> SweepResult:
     """One matrix-free sweep: per-row top-2 of (b - p), vsel at ``acol``
     and the CD statistics.  kp_s [S, 3] / kp_t [C, 3] float32, centred by
     a common offset; ``prices`` [C]; ``acol`` [S] previous column, SINK or
@@ -422,15 +525,18 @@ def stream_sweep(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed, wfd,
     BSC lane, :class:`DescFeatures` the FPFH/RoPS (multiplicative blend)
     lane with k in ``wfd``, :class:`NoFeatures` the none lane; any other
     type raises.  ``col_side`` adds the per-column least CD and its lowest
-    row.  CUDA tensors run the kernel, CPU tensors the plain version."""
+    row.  ``with_stats=False`` (the bidding sweeps, which read the top-2
+    only) skips the statistics and returns them as NaN.  CUDA tensors run
+    the kernel, CPU tensors the plain version."""
     check_features(feats, "stream_sweep")
     if isinstance(feats, NoFeatures) and feats.n_rows != kp_s.shape[0]:
         raise ValueError(f"stream_sweep: NoFeatures of {feats.n_rows} rows "
                          f"for {kp_s.shape[0]} source rows")
     args = (kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed, wfd, scale)
+    kw = dict(col_side=col_side, with_stats=with_stats)
     if require_device(kp_s, "stream_sweep") == "cuda":
-        return stream_sweep_cuda(*args, col_side=col_side)
-    return stream_sweep_plain(*args, col_side=col_side)
+        return stream_sweep_cuda(*args, **kw)
+    return stream_sweep_plain(*args, **kw)
 
 
 def stream_selected(kp_s, kp_t, feats, tgt_idx, wed, wfd, scale):

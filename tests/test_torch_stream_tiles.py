@@ -1,0 +1,228 @@
+"""What the tiled K5 design adds, on the CPU: the unpacked int8 bit rows of
+the BSC factors (against the JAX package's ``StreamFeatures`` bits), the
+Hamming term as an integer product over them, ``subset_rows`` on both
+forms, the statistics-free sweep, the order-free top-2 merge the kernels
+fold their partial results with, and the integer and float identities the
+CUDA kernels rest on (the biased FD, the nibble spread of a packed word,
+the masked price)."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from ghicp_tpu.features.bsc import pack_bits as jax_pack_bits
+from ghicp_tpu.ops.stream_kernel import make_stream_features as jax_feats
+from ghicp_tpu_torch.features.bsc import pack_bits
+from ghicp_tpu_torch.matching.stream_auction import sweep_moments
+from ghicp_tpu_torch.ops.stream_kernel import (
+    BIT_ROW, HAM_TC, NONE_RT, NONE_TC, NEG, RT, STAT_FIELDS, NoFeatures,
+    _merge_top2, _top2_init, column_splits, lex_merge_top2,
+    make_stream_features, popcount32, stream_selected, stream_sweep,
+    stream_sweep_plain, subset_rows, unpack_bits8)
+
+torch.set_num_threads(1)
+N_BITS = 441
+
+
+def _bits(rng, V, S, C):
+    bs = (rng.random((V, S, N_BITS)) < 0.3).astype(np.float32)
+    bt = (rng.random((1, C, N_BITS)) < 0.3).astype(np.float32)
+    return bs, bt
+
+
+def _feats(bs, bt):
+    return make_stream_features(pack_bits(torch.from_numpy(bs)),
+                                pack_bits(torch.from_numpy(bt)))
+
+
+@pytest.mark.parametrize("V", [1, 2, 4])
+def test_unpacked_bits_equal_jax_bits(V):
+    rng = np.random.default_rng(V)
+    bs, bt = _bits(rng, V, 96, 80)
+    f = _feats(bs, bt)
+    jf = jax_feats(packed_s=jax_pack_bits(jnp.asarray(bs)),
+                   packed_t=jax_pack_bits(jnp.asarray(bt)), n_bits=N_BITS)
+    fs, ft = np.asarray(jf.fs), np.asarray(jf.ft)
+    assert f.bits_s.dtype == torch.int8 and f.bits_t.dtype == torch.int8
+    assert tuple(f.bits_s.shape) == (V, 96, BIT_ROW)
+    assert tuple(f.bits_t.shape) == (80, BIT_ROW)
+    assert f.bits_s.is_contiguous() and f.bits_t.is_contiguous()
+    np.testing.assert_array_equal(f.bits_s.numpy(), fs[..., :BIT_ROW])
+    np.testing.assert_array_equal(f.bits_t.numpy(), ft[:, :BIT_ROW])
+    assert not fs[..., BIT_ROW:].any() and not ft[:, BIT_ROW:].any()
+    np.testing.assert_array_equal(f.na.numpy(), np.asarray(jf.na))
+    np.testing.assert_array_equal(f.nb.numpy(), np.asarray(jf.nb))
+
+
+@pytest.mark.parametrize("V", [1, 2, 4])
+def test_integer_product_gives_the_xor_popcount_fd(V):
+    """min_v (na_v + nb - 2 a_v . b) in int32 over the int8 rows (the
+    tensor-core kernel's sum) equals the XOR-popcount FD of every pair and
+    the gathered FD of ``stream_selected``."""
+    rng = np.random.default_rng(10 + V)
+    S, C = 70, 90
+    bs, bt = _bits(rng, V, S, C)
+    f = _feats(bs, bt)
+    dot = torch.einsum("vsk,ck->vsc", f.bits_s.to(torch.int32),
+                       f.bits_t.to(torch.int32))
+    h = (f.na.to(torch.int32)[:, :, None] + f.nb.to(torch.int32)[None, None]
+         - 2 * dot).amin(dim=0)
+    x = (f.words_s.to(torch.int64)[:, :, None]
+         ^ f.words_t.to(torch.int64)[None, None])
+    want = popcount32(x).sum(dim=-1).amin(dim=0)
+    assert torch.equal(h.to(torch.int64), want)
+    kp_s = torch.from_numpy(rng.uniform(-5, 5, (S, 3)).astype(np.float32))
+    kp_t = torch.from_numpy(rng.uniform(-5, 5, (C, 3)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, C, S))
+    fd = stream_selected(kp_s, kp_t, f, idx, 0.7, 0.3, 0.1)[2]
+    assert torch.equal(fd, h[torch.arange(S), idx].to(torch.float32))
+
+
+def test_subset_rows_keeps_both_forms_aligned():
+    rng = np.random.default_rng(3)
+    f = _feats(*_bits(rng, 4, 120, 64))
+    idx = torch.from_numpy(rng.permutation(120)[:37])
+    sub = subset_rows(f, idx)
+    assert torch.equal(sub.words_s, f.words_s[:, idx])
+    assert torch.equal(sub.bits_s, unpack_bits8(sub.words_s))
+    assert torch.equal(sub.bits_s, f.bits_s[:, idx])
+    assert torch.equal(sub.na, f.na[:, idx])
+    assert sub.bits_s.is_contiguous()
+    assert sub.bits_t is f.bits_t and sub.words_t is f.words_t
+
+
+def _sweep_args(rng, S, C, feats, wed=0.7, wfd=0.3):
+    t = torch.from_numpy
+    kp_s = t(rng.uniform(-10, 10, (S, 3)).astype(np.float32))
+    kp_t = t(rng.uniform(-10, 10, (C, 3)).astype(np.float32))
+    ms, mt = t(rng.random(S) < 0.9), t(rng.random(C) < 0.9)
+    prices = t(rng.uniform(0, 3, C).astype(np.float32))
+    acol = np.where(rng.random(S) < 0.7, rng.integers(0, C, S), -1)
+    acol[::11] = 2**30
+    return (kp_s, kp_t, feats, ms, mt, prices, t(acol), wed, wfd, 0.08)
+
+
+@pytest.mark.parametrize("lane", ["bsc", "none"])
+def test_statistics_free_sweep(lane):
+    """``with_stats=False``: the same top-2 and vsel, NaN statistics, and a
+    caller that reads them raises."""
+    rng = np.random.default_rng(5)
+    S, C = 150, 200
+    feats = _feats(*_bits(rng, 4, S, C)) if lane == "bsc" else NoFeatures(S)
+    a = _sweep_args(rng, S, C, feats, *((0.7, 0.3) if lane == "bsc"
+                                         else (1.0, 0.0)))
+    full = stream_sweep_plain(*a, tc=64)
+    bare = stream_sweep(*a, with_stats=False)
+    for k in ("v1", "j1", "v2", "j2", "vsel"):
+        assert torch.equal(getattr(full, k), getattr(bare, k))
+    for k in STAT_FIELDS:
+        assert torch.isnan(getattr(bare, k))
+        assert torch.isfinite(getattr(full, k))
+    assert float(full.cnt) > 0
+    mean, std = sweep_moments(full)
+    assert float(mean) > 0 and float(std) > 0
+    with pytest.raises(ValueError, match="with_stats=False"):
+        sweep_moments(bare)
+
+
+def test_solve_reads_statistics_of_sweep_zero_only(monkeypatch):
+    """The streaming solve asks for the statistics on its sweep 0 and for
+    none on its bidding sweeps (full and compacted)."""
+    from ghicp_tpu_torch.matching import stream_auction as sa
+    rng = np.random.default_rng(9)
+    S, C = 192, 256
+    feats = _feats(*_bits(rng, 4, S, C))
+    a = _sweep_args(rng, S, C, feats)
+    seen = []
+
+    def spy(*args, **kw):
+        seen.append((args[0].shape[0], kw.get("with_stats", True)))
+        return stream_sweep(*args, **kw)
+
+    monkeypatch.setattr(sa, "stream_sweep", spy)
+    sa.stream_solve(a[0], a[1], feats, torch.ones(S, dtype=torch.bool),
+                    torch.ones(C, dtype=torch.bool), 0.6, 0.4, 0.1,
+                    lambda m, s: m - s, eps_final=0.01, rel_eps=1.0 / 64,
+                    max_sweeps=64, p0=torch.zeros(C), price_uncertainty=3e38,
+                    acol0=torch.full((S,), -1, dtype=torch.int64),
+                    pen_prev=0.0, open_cap=64)
+    assert seen[0] == (S, True)
+    assert len(seen) > 2 and all(not ws for _, ws in seen[1:])
+    assert any(rows == RT for rows, _ in seen[1:])
+
+
+def _single_pass(v):
+    """The lexicographic top-2 (value desc, column asc) of each row, with the
+    initial (NEG, 0) twice, by sorting."""
+    S, C = v.shape
+    cols = torch.arange(C).expand(S, C)
+    vals = torch.cat([v, torch.full((S, 2), NEG)], dim=1)
+    ids = torch.cat([cols, torch.zeros((S, 2), dtype=torch.int64)], dim=1)
+    key = torch.argsort(ids, dim=1, stable=True)
+    vals, ids = vals.gather(1, key), ids.gather(1, key)
+    order = torch.argsort(-vals, dim=1, stable=True)
+    vals, ids = vals.gather(1, order), ids.gather(1, order)
+    return vals[:, 0], ids[:, 0], vals[:, 1], ids[:, 1]
+
+
+@settings(max_examples=60, deadline=None)
+@given(seed=st.integers(0, 2**31 - 1), C=st.integers(1, 40),
+       n_parts=st.integers(1, 8), levels=st.integers(1, 4))
+def test_lex_top2_merge_is_order_free(seed, C, n_parts, levels):
+    """Column subsets folded in a random order, with planted ties (values
+    from a few levels, masked NEG entries), give the single-pass top-2."""
+    rng = np.random.default_rng(seed)
+    S = 6
+    v = torch.from_numpy(rng.integers(0, levels, (S, C)).astype(np.float32))
+    v[torch.from_numpy(rng.random((S, C)) < 0.2)] = NEG
+    part = rng.integers(0, n_parts, C)
+    state = _top2_init(S, "cpu")
+    for p in rng.permutation(n_parts):
+        cols = np.nonzero(part == p)[0]
+        if cols.size:
+            state = _merge_top2(state, v[:, cols], torch.from_numpy(cols))
+    want = _single_pass(v)
+    for a, b in zip(state, want):
+        assert torch.equal(a, b)
+    # and the merge of two partial top-2s is symmetric
+    half = C // 2
+    s1 = _merge_top2(_top2_init(S, "cpu"), v[:, :half], 0) if half else \
+        _top2_init(S, "cpu")
+    s2 = _merge_top2(_top2_init(S, "cpu"), v[:, half:], half)
+    for a, b, c in zip(lex_merge_top2(s1, s2), lex_merge_top2(s2, s1), want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_kernel_arithmetic_identities():
+    """The Hamming kernel reads FD from BIAS + min_v (na_v - 2 a_v.b) as the
+    float 8389120 + that value (exact over its range), spreads a packed word
+    a nibble at a time into {0, 1} bytes by one product, and carries the
+    price 3e38 at masked columns, where -CD - p rounds to the initial -3e38
+    for any CD the lanes produce."""
+    BIAS, BIAS_F = 0x4B000200, np.float32(8389120.0)
+    # na_v - 2 a_v.b lies in [-|b|, |a_v|], within [-448, 448]
+    h = np.arange(-BIT_ROW, BIT_ROW + 1, dtype=np.int32)
+    got = (h + BIAS).astype(np.int32).view(np.float32) - BIAS_F
+    np.testing.assert_array_equal(got, h.astype(np.float32))
+    nib = np.arange(16, dtype=np.uint32)
+    spread = ((nib * np.uint32(0x00204081)) & np.uint32(0x01010101))
+    want = sum(((nib >> k) & 1) << (8 * k) for k in range(4))
+    np.testing.assert_array_equal(spread, want)
+    cd = np.float32(np.concatenate([[0.0], np.geomspace(1e-30, 1e9, 200)]))
+    out = (-cd).astype(np.float32) - np.float32(3.0e38)
+    assert (out == np.float32(-3.0e38)).all()
+    assert np.float32(-3.0e38) == np.float32(NEG)
+
+
+@pytest.mark.parametrize("S,C,rows,cols", [
+    (51200, 51200, RT, HAM_TC), (2048, 51200, RT, HAM_TC),
+    (51200, 51200, NONE_RT, NONE_TC), (2048, 51200, NONE_RT, NONE_TC),
+    (8192, 8192, RT, HAM_TC), (100, 777, RT, HAM_TC), (1, 1, RT, HAM_TC)])
+def test_column_splits_leave_no_range_empty(S, C, rows, cols):
+    n_ct = -(-C // cols)
+    for per_sm in (2, 16):
+        cs = column_splits(S, C, 132, rows, cols, per_sm)
+        tps = -(-n_ct // cs)
+        assert 1 <= cs <= n_ct and (cs - 1) * tps < n_ct
