@@ -9,7 +9,7 @@ count under their own ``*_mult`` names, the float32 variants of K1-K3
 feature-"none" variant under ``stream_sweep_none`` and its column-side
 variants under ``*_col``; each K5 launch also counts under
 ``<name>@<rows>``, the rows it swept, so that full-height and compacted
-sweeps can be told apart.
+sweeps can be told apart, and each K4 launch under ``nms_exact@<slots>``.
 """
 from __future__ import annotations
 

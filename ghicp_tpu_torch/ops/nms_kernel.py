@@ -15,9 +15,11 @@ kernel's norm expansion may flip pairs that lie exactly on the radius).
 
 :func:`nms_prep` is the host-side set-up of the kernel, as ``_nms_prep``
 in the JAX package: centre, Morton-sort (invalid rows last), cut tiles of
-256, and list for each row tile the column tiles whose bounding boxes lie
-within the radius.  Bound on this card: operations, the distance tests of
-the near-tile pairs; the design notes are at the head of the CUDA source.
+256, list for each row tile the column tiles whose bounding boxes lie
+within the radius, and flatten those (row tile, column tile) pairs into
+the kernel's work items.  Bound on this card: operations, the distance
+tests of the alive pairs in near tiles; the design notes are at the head
+of the CUDA source.
 """
 from __future__ import annotations
 
@@ -68,12 +70,16 @@ class NMSPrep(NamedTuple):
     cand: torch.Tensor      # [N] int32 sorted candidate flags
     nbr_cnt: torch.Tensor   # [T] int32 near column tiles of each row tile
     nbr_idx: torch.Tensor   # [T, maxn] int32 their ids (ascending)
+    items: torch.Tensor     # [T * maxn] int32 work items k * T + t (the
+                            # k-th near tile of row tile t), listed first
+    n_items: torch.Tensor   # [1] int32 listed items (on the device)
     r2: float               # radius^2 rounded to float32
 
 
 def nms_prep(xyz, curv, cand, radius, ts: int = TS) -> NMSPrep:
-    """Centre, Morton-sort, tile and list the near tiles (one host read:
-    the largest near count, which sizes the table)."""
+    """Centre, Morton-sort, tile, list the near tiles and flatten them
+    into work items (one host read: the largest near count, which sizes
+    the table)."""
     N = curv.shape[0]
     T = N // ts
     cand = cand.to(torch.bool)
@@ -103,11 +109,18 @@ def nms_prep(xyz, curv, cand, radius, ts: int = TS) -> NMSPrep:
     nbr_cnt = near.sum(dim=1).to(torch.int32)
     maxn = max(int(nbr_cnt.max()), 1)
     nbr_idx = torch.sort((~near).to(torch.int8), dim=1, stable=True).indices
+    # items k-major (code k * T + t), so that blocks taking consecutive
+    # items work on different row tiles; the listed ones first
+    listed = (torch.arange(maxn, device=xyz.device)[None, :]
+              < nbr_cnt[:, None]).T.reshape(-1)
+    items = torch.sort((~listed).to(torch.int8), stable=True).indices
     xc = torch.cat([xs, curv.to(torch.float32)[order][:, None]], dim=1)
     return NMSPrep(xc=xc.contiguous(), oid=order.to(torch.int32),
                    cand=cd.to(torch.int32),
                    nbr_cnt=nbr_cnt.contiguous(),
                    nbr_idx=nbr_idx[:, :maxn].to(torch.int32).contiguous(),
+                   items=items.to(torch.int32).contiguous(),
+                   n_items=listed.sum().to(torch.int32).reshape(1),
                    r2=float(r2))
 
 
@@ -178,8 +191,8 @@ def _lib():
     from ghicp_tpu_torch.ops._build import cuda_library
     lib = cuda_library("nms")
     if not getattr(lib, "_typed", False):
-        lib.nms_exact.argtypes = ([_VP] * 5 + [_I] * 4 + [_F]
-                                  + [_VP] * 6)
+        lib.nms_exact.argtypes = ([_VP] * 6 + [_I] * 4 + [_F]
+                                  + [_VP] * 5)
         lib.nms_exact.restype = _I
         lib._typed = True
     return lib
@@ -187,25 +200,27 @@ def _lib():
 
 def nms_exact_cuda(prep: NMSPrep, max_rounds: int = 128):
     """Launch K4 on the card.  Returns (selected [N] bool in the original
-    order, rounds [1] int32 on the card)."""
+    order, rounds [1] int32 on the card).  Counts the launch under
+    ``nms_exact`` and ``nms_exact@<N>``."""
     from ghicp_tpu_torch.ops._build import check, ptr
     N = prep.oid.shape[0]
     T = N // TS
     dev = prep.xc.device
     i32 = torch.int32
-    alive = torch.empty((N,), dtype=i32, device=dev)
-    wins = torch.empty((N,), dtype=i32, device=dev)
+    state = torch.empty((N,), dtype=i32, device=dev)
     sel = torch.empty((N,), dtype=i32, device=dev)
-    cnt = torch.zeros((3,), dtype=i32, device=dev)
+    # round r's losers at 2 r + 1, its suppressed at 2 r + 2
+    cnt = torch.zeros((2 * int(max_rounds) + 1,), dtype=i32, device=dev)
     rounds = torch.zeros((1,), dtype=i32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().nms_exact(ptr(prep.xc), ptr(prep.oid), ptr(prep.cand),
-                          ptr(prep.nbr_cnt), ptr(prep.nbr_idx), N, T,
-                          prep.nbr_idx.shape[1], int(max_rounds), prep.r2,
-                          ptr(alive), ptr(wins), ptr(sel), ptr(cnt),
-                          ptr(rounds), _VP(stream))
+                          ptr(prep.nbr_idx), ptr(prep.items),
+                          ptr(prep.n_items), N, T, prep.nbr_idx.shape[1],
+                          int(max_rounds), prep.r2, ptr(state), ptr(cnt),
+                          ptr(sel), ptr(rounds), _VP(stream))
     check(rc, "nms_exact launch")
     count_launch("nms_exact")
+    count_launch(f"nms_exact@{N}")
     out = torch.zeros((N,), dtype=torch.bool, device=dev)
     out[prep.oid.long()] = sel > 0
     return out, rounds

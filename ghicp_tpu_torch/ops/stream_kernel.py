@@ -69,7 +69,7 @@ RT = 64         # rows a block of the Hamming kernel (the compaction granule)
 HAM_TC = 64     # columns a tile of the Hamming kernel
 NONE_RT = 128   # rows a block of the none kernel
 NONE_TC = 128   # columns a tile of the none kernel
-COL_RT = 128    # rows a block of the per-pair kernels (column side, mult)
+COL_RT = 128    # rows a block of the per-pair kernels (K5-col, mult)
 TC = 128        # columns a tile of the per-pair kernels
 PLAIN_TC = 1024
 _KERNEL_SHAPES = {(1, 14), (2, 14), (4, 14)}    # (V, W) instantiated
@@ -380,7 +380,7 @@ def _lib():
                                           + [_VP] * 13)
         lib.stream_sweep_desc.restype = _I
         lib.stream_sweep_tiled.argtypes = ([_VP] * 11 + [_F] * 3 + [_I] * 6
-                                           + [_VP] * 12)
+                                           + [_VP] * 13)
         lib.stream_sweep_tiled.restype = _I
         lib._typed = True
     return lib
@@ -408,14 +408,15 @@ def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
                       with_stats: bool = True) -> SweepResult:
     """Launch K5 on the card (the similarity lane for a
     :class:`DescFeatures`, the none lane for :class:`NoFeatures`): the
-    tiled kernels for the Hamming and none lanes, the per-pair ones for the
-    column side and the similarity lane."""
+    tiled kernels for the Hamming lane and the none lane (with or without
+    its column side), the per-pair ones for the Hamming lane's column side
+    and the similarity lane."""
     from ghicp_tpu_torch.ops._build import check, ptr
     S, C = kp_s.shape[0], kp_t.shape[0]
     dev = kp_s.device
     f32, i32 = torch.float32, torch.int32
     mult = isinstance(feats, DescFeatures)
-    tiled = not (mult or col_side)
+    tiled = isinstance(feats, NoFeatures) or not (mult or col_side)
     if mult:
         F = feats.fs.shape[1]
         if not 0 < feats.dim <= F or F % 8:
@@ -489,7 +490,7 @@ def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
             vp(na if ham else None),
             vp(nb if ham else None), ptr(ms), ptr(mt), ptr(p), ptr(ac),
             _f32(wed), _f32(wfd), _f32(scale), S, C, V, cs, n_blocks,
-            int(with_stats), *outs[:-2], _VP(stream))
+            int(with_stats), *outs)
     else:
         rc = _lib().stream_sweep(
             ptr(ks), ptr(kt), vp(ws), vp(wt), ptr(ms), ptr(mt), ptr(p),

@@ -142,3 +142,71 @@ def test_engine_inputs_records_the_engine_call():
     np.testing.assert_array_equal(seen["kp_t"], kp + 0.01)
     np.testing.assert_array_equal(seen["init_transform"], np.eye(4))
     assert seen["bbx"] == np.float32(7.5) and seen["it_shift"] == 2.0
+
+
+def test_compare_nms_times_each_bucket(monkeypatch):
+    """Phase 2 holds K4 on each bucket it is given (the verdict pair's and
+    config 6's on the card) and keeps every bucket's times and bound under
+    its slots; the kernels-line row is the first bucket's."""
+    monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "REPS", 1)
+    rng = np.random.default_rng(5)
+
+    def bucket(n, extent):
+        t = torch.from_numpy
+        return (t(rng.uniform(0, extent, (n, 3)).astype(np.float32)),
+                t(rng.random(n).astype(np.float32)), t(rng.random(n) < 0.8),
+                1.0)
+
+    row = chip_smoke.compare_nms(torch, rng, torch.device("cpu"),
+                                 (bucket(512, 6.0), bucket(1024, 9.0)))
+    assert row["name"] == "nms_exact" and row["max_abs_err"] == 0.0
+    for k in ("ms_by_rows", "plain_ms_by_rows", "bound_ms_by_rows"):
+        assert sorted(row[k]) == [512, 1024]
+        assert all(v > 0 for v in row[k].values())
+    assert row["ms"] == row["ms_by_rows"][512]
+    assert row["bound_ms"] == row["bound_ms_by_rows"][512]
+
+
+def test_config_helpers_are_the_bench_settings():
+    """``bench_config`` / ``config6`` are the settings phases 2-9 run the
+    bench pair and config 6 at (bench_configs.py config 6: 51,200 slots,
+    NMS 0.155 m, the streaming lane)."""
+    b, c6 = chip_smoke.bench_config(), chip_smoke.config6()
+    assert b.non_max_radius == 0.5 and b.pca_max_cells == 65536
+    assert c6.keypoint_capacity == 51200 and c6.non_max_radius == 0.155
+    assert c6.streaming_cost == "on" and c6.pca_max_cells == 262144
+    assert chip_smoke.CONFIG6_CUT_SLOTS < c6.keypoint_capacity
+
+
+def test_save_engine_record_round_trips(tmp_path):
+    """``--save-engine-inputs`` writes each record through one writer: the
+    engine inputs, the truth, the run's pose and iterations, and the config
+    as ``config_to_dict`` JSON, which ``config_from_dict`` reads back."""
+    import dataclasses
+    import json
+    import types
+
+    from ghicp_tpu_torch.core.config import (CorrespondenceType,
+                                             FeatureType)
+    from ghicp_tpu_torch.interop import config_from_dict
+    cfg = dataclasses.replace(chip_smoke.config6(), feature=FeatureType.NONE,
+                              correspondence=CorrespondenceType.NNR,
+                              keypoint_capacity=chip_smoke.CONFIG6_CUT_SLOTS,
+                              non_max_radius=chip_smoke.CONFIG6_CUT_NMS)
+    seen = dict(kp_s=np.ones((8, 3), np.float32), mask_s=np.ones(8, bool),
+                bbx=np.float32(3.0), init_transform=np.eye(4, dtype=np.float32))
+    T = torch.eye(4)
+    T[0, 3] = 0.25
+    out = types.SimpleNamespace(transform=T,
+                                result=types.SimpleNamespace(iterations=30))
+    chip_smoke.save_engine_record(torch, str(tmp_path / "records"), "r.npz",
+                                  seen, np.eye(4), out, cfg)
+    d = np.load(tmp_path / "records" / "r.npz")
+    for k, v in seen.items():
+        np.testing.assert_array_equal(d[k], v)
+    np.testing.assert_array_equal(d["transform"], T.numpy())
+    np.testing.assert_array_equal(d["T_gt"], np.eye(4, dtype=np.float32))
+    assert int(d["iterations"]) == 30
+    assert config_from_dict(json.loads(str(d["config"]))) == cfg

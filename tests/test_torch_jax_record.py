@@ -211,3 +211,75 @@ def test_streaming_none_km_on_the_port_keypoints():
             transform=T_est.tolist())), flush=True)
     rot, tr = transform_error(poses["port"], poses["JAX"])
     assert rot < 0.5 and tr < 0.1, (rot, tr)
+
+
+# the engine inputs of config 6's streaming none + NNR run, cut to 16,384
+# keypoint slots (NMS 0.3 m), from its perturbed truth, written on the card
+# by ``chip_smoke.py --save-engine-inputs``
+CONFIG6_INPUTS = pathlib.Path(__file__).parent / "data" / "config6_none_nnr.npz"
+
+
+def _jax_config(d: dict) -> GHICPConfig:
+    """The JAX package's config from the port's ``config_to_dict`` fields
+    (those it has)."""
+    enums = {"feature": FeatureType, "correspondence": CorrespondenceType}
+    return GHICPConfig(**{f.name: enums.get(f.name, lambda v: v)(d[f.name])
+                          for f in dataclasses.fields(GHICPConfig)
+                          if f.name in d})
+
+
+@pytest.mark.slow
+def test_config6_none_nnr_on_the_port_keypoints():
+    """Both packages' streaming none + NNR engines, on a CPU, on config 6's
+    engine inputs as the port took them on the card (cut to 16,384 slots):
+    the JAX package through ``stream_sweep_ref`` with its zero bit factors
+    and the column side, the port through the plain K5-none-col.  Prints one
+    ``JAX record`` line a package (with its distance from the card's pose)
+    and holds the two poses within 0.5 deg / 0.1 m of each other: where they
+    agree, config 6's none + NNR error is the design's, not the port's.  As
+    a regression limit, within 0.05 deg / 0.01 m, ten times their measured
+    distance (0.0000 deg / 0.0010 m), so that a change that moves the port's
+    none + NNR lane away from the JAX package's fails here."""
+    import jax.numpy as jnp
+
+    import ghicp_tpu.registration.ghicp as jgh
+    from ghicp_tpu.ops.stream_kernel import StreamFeatures
+    from ghicp_tpu_torch.interop import config_from_dict
+    from ghicp_tpu_torch.ops.stream_kernel import NoFeatures
+    from ghicp_tpu_torch.registration.ghicp import ghicp_register_chunked
+    d = np.load(CONFIG6_INPUTS)
+    conf = json.loads(str(d["config"]))
+    cap = len(d["kp_s"])
+    args = [d[k] for k in ("kp_s", "mask_s", "kp_t", "mask_t")]
+    zeros = StreamFeatures(fs=jnp.zeros((1, cap, 128), jnp.bfloat16),
+                           ft=jnp.zeros((cap, 128), jnp.bfloat16),
+                           na=jnp.zeros((1, cap)), nb=jnp.zeros((cap,)))
+    J = jgh.ghicp_register_chunked(
+        *(jnp.asarray(x) for x in args), None, jnp.float32(d["bbx"]),
+        _jax_config(conf), init_transform=jnp.asarray(d["init_transform"]),
+        it_shift=float(d["it_shift"]), stream=zeros)
+    M = ghicp_register_chunked(
+        *args, None, float(d["bbx"]), config_from_dict(conf),
+        init_transform=d["init_transform"], it_shift=float(d["it_shift"]),
+        device="cpu", stream=NoFeatures(cap))
+    poses = {}
+    for name, T_est, its, cor in (
+            ("JAX", np.asarray(J.transform), int(J.iterations),
+             np.asarray(J.metrics.cor)),
+            ("port", M.transform.numpy(), int(M.iterations),
+             M.metrics.cor.numpy())):
+        rot, tr = transform_error(T_est, d["T_gt"])
+        rot_c, tr_c = transform_error(T_est, d["transform"])
+        poses[name] = T_est
+        print("JAX record", json.dumps(dict(
+            package=name, lane="streaming", feature="none",
+            correspondence="nnr", start="perturbed truth", slots=cap,
+            keypoints=[int(d["mask_s"].sum()), int(d["mask_t"].sum())],
+            iterations=its, cor=cor[:its].tolist(), rot_err_deg=rot,
+            t_err_m=tr, from_card_deg=rot_c, from_card_m=tr_c,
+            transform=T_est.tolist())), flush=True)
+    rot, tr = transform_error(poses["port"], poses["JAX"])
+    print("JAX record", json.dumps(dict(port_vs_jax_deg=rot,
+                                        port_vs_jax_m=tr)), flush=True)
+    assert rot < 0.5 and tr < 0.1, (rot, tr)
+    assert rot < 0.05 and tr < 0.01, (rot, tr)

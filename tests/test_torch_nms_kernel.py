@@ -129,3 +129,153 @@ def test_nms_paths():
     assert nms_path(8192) == "brute"
     assert nms_path(8448) == "kernel" and nms_path(131072) == "kernel"
     assert nms_path(8200) == "gather" and nms_path(262144) == "gather"
+
+
+# ---------------------------------------------------------------------------
+# K4's work split: a model of csrc/nms.cu
+# ---------------------------------------------------------------------------
+
+_WARPS, _CHUNK = TS // 32, 16
+
+
+def _k4_model(prep, rng, max_rounds=128):
+    """nms.cu's fixed point, item by item: one state int a slot (-1 dead,
+    else a round stamp), each phase's items in a shuffled order, each item
+    staging its rows and columns from the live state or from the state at
+    the start of the phase (a concurrent item may or may not see another's
+    writes), the compacted sides split over warps (spare warps splitting the
+    columns), each warp's walk stopping once its lanes are settled, first
+    writes counted by the exchange's old value, and alive_{r+1} = L_r -
+    S_r.  Returns (selected [N] bool in the original order, rounds,
+    distance tests walked)."""
+    from ghicp_tpu_torch.ops.nms_kernel import _d2
+    N = prep.oid.shape[0]
+    T = N // TS
+    xc, oid = prep.xc, prep.oid.numpy()
+    st = np.where(prep.cand.numpy() != 0, 0, -1)
+    codes = prep.items.numpy()[:int(prep.n_items[0])]
+    nbr = prep.nbr_idx.numpy()
+    cnt = np.zeros(2 * max_rounds + 1, np.int64)
+    cnt[0] = int((st == 0).sum())
+    n_alive, r, walked = cnt[0], 0, 0
+    while n_alive > 0 and r < max_rounds:
+        for win in (False, True):
+            slot = 2 * r + (2 if win else 1)
+            start = st.copy()
+            for code in rng.permutation(codes):
+                k, t = divmod(int(code), T)
+                u = nbr[t, k]
+                seen = st if rng.random() < 0.5 else start
+                rs = t * TS + np.arange(TS)
+                cs = u * TS + np.arange(TS)
+                rows = rs[seen[rs] == (r + 1 if win else r)]
+                cols = cs[(seen[cs] == r) if win else (seen[cs] >= r)]
+                if not rows.size or not cols.size:
+                    continue
+                nrw = -(-rows.size // 32)
+                ncs = _WARPS // nrw
+                chunk = -(-cols.size // ncs)
+                for w in rng.permutation(nrw * ncs):
+                    lanes = rows[(w % nrw) * 32:(w % nrw) * 32 + 32]
+                    part = cols[(w // nrw) * chunk:(w // nrw + 1) * chunk]
+                    if not part.size:
+                        continue
+                    near = (_d2(xc[lanes, :3], xc[part, :3])
+                            <= prep.r2).numpy()
+                    if win:
+                        hit = near
+                    else:
+                        ci, cj = xc[lanes, 3].numpy(), xc[part, 3].numpy()
+                        beat = ((cj[None, :] > ci[:, None])
+                                | ((cj[None, :] == ci[:, None])
+                                   & (oid[part][None, :]
+                                      < oid[lanes][:, None])))
+                        hit = near & beat
+                    # the walk stops at the first vote after every lane is
+                    # settled; it decides nothing
+                    first = np.where(hit.any(axis=1), hit.argmax(axis=1),
+                                     part.size)
+                    stop = min(part.size, -(-(int(first.max()) + 1)
+                                            // _CHUNK) * _CHUNK)
+                    walked += stop * lanes.size
+                    for i in lanes[hit.any(axis=1)]:
+                        old = st[i]
+                        st[i] = -1 if win else r + 1
+                        cnt[slot] += old == (r + 1 if win else r)
+        n_alive = cnt[2 * r + 1] - cnt[2 * r + 2]
+        r += 1
+    sel = np.zeros(N, bool)
+    sel[oid] = (st >= 0) & (st < r)
+    return sel, r, walked
+
+
+def _clustered(seed, n, n_cand):
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(0, 12, (12, 3))
+    pts = centres[rng.integers(0, 12, n)] + rng.normal(0, 0.6, (n, 3))
+    curv = rng.uniform(0.05, 1.0, n).astype(np.float32)
+    cand = np.zeros(n, bool)
+    cand[rng.permutation(n)[:n_cand]] = True
+    return pts.astype(np.float32), curv, cand, 0.9
+
+
+def _k4_case(name):
+    if name == "clustered":
+        return _clustered(31, 2048, 1700)
+    if name == "uniform":
+        rng = np.random.default_rng(32)
+        pts = rng.uniform(0, 10, (2048, 3)).astype(np.float32)
+        curv = rng.random(2048).astype(np.float32)
+        return pts, curv, rng.random(2048) < 0.85, 1.0
+    if name == "ties":
+        # three curvature levels: most neighbours tie, the lower index wins
+        pts, _, cand, r = _clustered(33, 1536, 1400)
+        rng = np.random.default_rng(34)
+        return pts, rng.choice(np.float32([0.2, 0.5, 0.8]), 1536), cand, r
+    return _fixture(name)
+
+
+@pytest.mark.parametrize("name", ["clustered", "uniform", "ties",
+                                  "multi_tile", "curvature_ties"])
+def test_k4_work_split_model_matches_plain_and_jax(name):
+    """The kernel's design (work items of near tile pairs in any order,
+    compacted alive and winner walks, warps splitting rows and columns,
+    early stops, stamp states and first-write counts) selects what
+    ``nms_exact_plain`` and the JAX kernel (interpret mode) select, in as
+    many rounds, on clustered and uniform candidates and on exact curvature
+    ties; and walks fewer distance tests than the listed tile pairs hold."""
+    pts, curv, cand, r = _k4_case(name)
+    t = torch.from_numpy
+    prep = nms_prep(t(pts), t(curv), t(cand), r)
+    want, rounds = nms_exact_plain(t(pts), t(curv), t(cand), r)
+    jsel, jrounds = nms_pallas(jnp.asarray(pts), jnp.asarray(curv),
+                               jnp.asarray(cand), r, ts=256, interpret=True)
+    assert np.array_equal(want.numpy(), np.asarray(jsel))
+    assert rounds == int(jrounds)
+    assert rounds >= 2
+    for seed in (0, 1):
+        sel, r_m, walked = _k4_model(prep, np.random.default_rng(seed))
+        assert np.array_equal(sel, want.numpy()), seed
+        assert r_m == rounds
+    listed = 2 * rounds * int(prep.nbr_cnt.sum()) * TS * TS
+    assert 0 < walked < listed
+
+
+def test_prep_items_list_each_near_tile_pair_once():
+    """The flat work items are exactly the listed (row tile, k-th near
+    tile) pairs, k-major, each once, the rest after them."""
+    pts, curv, cand, r = _k4_case("clustered")
+    prep = nms_prep(torch.from_numpy(pts), torch.from_numpy(curv),
+                    torch.from_numpy(cand), r)
+    T, maxn = prep.nbr_idx.shape
+    n = int(prep.n_items[0])
+    assert n == int(prep.nbr_cnt.sum())
+    assert prep.items.shape == (T * maxn,)
+    assert prep.items.dtype == torch.int32 and prep.n_items.dtype == torch.int32
+    codes = prep.items.numpy()
+    assert sorted(codes.tolist()) == list(range(T * maxn))
+    k, t = np.divmod(codes[:n], T)
+    assert (k < prep.nbr_cnt.numpy()[t]).all()
+    assert (np.diff(k) >= 0).all()
+    k_rest, t_rest = np.divmod(codes[n:], T)
+    assert (k_rest >= prep.nbr_cnt.numpy()[t_rest]).all()

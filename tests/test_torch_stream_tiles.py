@@ -226,3 +226,171 @@ def test_column_splits_leave_no_range_empty(S, C, rows, cols):
         cs = column_splits(S, C, 132, rows, cols, per_sm)
         tps = -(-n_ct // cs)
         assert 1 <= cs <= n_ct and (cs - 1) * tps < n_ct
+
+
+# ---------------------------------------------------------------------------
+# K5-none-col: a model of none_kernel<STATS, true>'s blocking
+# ---------------------------------------------------------------------------
+
+_NO_KEY = 0xFFFFFFFF
+
+
+def _bits32(x):
+    return np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+
+
+def _none_col_model(args, splits, rng):
+    """none_kernel<STATS, true> step by step: blocks of NONE_RT rows (lane
+    l, register r: row0 + l + 32 r), column splits of whole tiles, each
+    tile's valid columns compacted in order, warp w walking compacted
+    positions w, w + 4, ...; per column a lane's least CD over its rows (a
+    masked row's CD NaN, skipped as fminf does), the warp's least bits, the
+    lowest row at them, the key folded into the global array; per row the
+    top-2 of each warp's columns merged over warps and splits.  A warp
+    none of whose lanes reaches the column's key as staged with the tile
+    (the current key or, as a tile staged a tile ahead may hold, an older
+    one) skips the column.  Blocks, warps and splits run in shuffled
+    orders.  Returns (v1, j1, v2, j2, cnt, cmin, crow, columns skipped)."""
+    from ghicp_tpu_torch.ops.cost_kernel import _f32, _factors, factor_ed
+    from ghicp_tpu_torch.ops.stream_kernel import _COL_KEY0, NO_ROW
+    kp_s, kp_t, _, ms, mt, prices, _, wed, _, scale = args
+    S, C = kp_s.shape[0], kp_t.shape[0]
+    ks, kt = _factors(kp_s), _factors(kp_t)
+    n_rb, n_ct = -(-S // NONE_RT), -(-C // NONE_TC)
+    tps = -(-n_ct // splits)
+    colkey = np.full(C, _COL_KEY0, np.uint64)
+    part = {}
+    cnt = skipped = 0
+    wed32 = np.float32(_f32(wed))
+    for b, y in rng.permutation([(b, y) for b in range(n_rb)
+                                 for y in range(splits)]):
+        rows = b * NONE_RT + np.arange(NONE_RT)     # index 32 r + lane
+        live = (rows < S) & ms.numpy()[np.minimum(rows, S - 1)]
+        rows_in = np.minimum(rows, S - 1)
+        state = _top2_init(NONE_RT, "cpu")
+        nvalid = 0
+        older = colkey.copy()
+        for tile in range(y * tps, min(n_ct, (y + 1) * tps)):
+            cols = tile * NONE_TC + np.arange(NONE_TC)
+            cols = cols[cols < C]
+            comp = cols[mt.numpy()[cols]]       # compacted, increasing
+            nvalid += comp.size
+            if not comp.size:
+                continue
+            staged = (older if rng.random() < 0.5 else colkey)[comp] >> \
+                np.uint64(32)
+            ed = factor_ed(ks[rows_in], kt[comp], scale).numpy()
+            cd = np.where(live[:, None], wed32 * ed, np.float32(np.nan))
+            v = torch.from_numpy(np.where(
+                live[:, None], -cd - prices.numpy()[comp][None, :],
+                np.float32(NEG)).astype(np.float32))
+            tops = []
+            for w in rng.permutation(4):
+                qs = np.arange(w, comp.size, 4)
+                if not qs.size:
+                    continue
+                tops.append(_merge_top2(_top2_init(NONE_RT, "cpu"), v[:, qs],
+                                        torch.from_numpy(comp[qs])))
+                c4 = cd[:, qs].reshape(4, 32, qs.size)    # [r, lane, q]
+                lane_min = np.fmin.reduce(c4, axis=0)
+                bits = np.where(lane_min == lane_min,
+                                _bits32(lane_min + np.float32(0.0)),
+                                _NO_KEY)
+                reach = (bits <= staged[qs][None, :]).any(axis=0)   # vote
+                skipped += int((~reach).sum())
+                wm = bits.min(axis=0)                      # over the warp
+                mf = np.asarray(wm.astype(np.uint32)).view(np.float32)
+                rowid = (b * NONE_RT + np.arange(32)[None, :, None]
+                         + 32 * np.arange(4)[:, None, None])
+                hit = c4 == mf[None, None, :]
+                rr = np.where(hit, rowid, _NO_KEY).min(axis=0)  # lowest r
+                wrow = rr.min(axis=0).astype(np.uint64)
+                ok = reach & (wm != _NO_KEY)
+                key = (wm << np.uint64(32)) | wrow
+                tgt = comp[qs][ok]
+                colkey[tgt] = np.minimum(colkey[tgt], key[ok])
+            for t in tops:
+                state = lex_merge_top2(state, t)
+        cnt += int(live.sum()) * nvalid
+        part[(b, y)] = (state, rows, live)
+    v1, j1, v2, j2 = _top2_init(S, "cpu")
+    for y in rng.permutation(splits):
+        sv1, sj1, sv2, sj2 = _top2_init(S, "cpu")
+        for b in range(n_rb):
+            (a1, b1, a2, b2), rows, live = part[(b, y)]
+            keep = torch.from_numpy(live)
+            idx = torch.from_numpy(rows[live])
+            sv1[idx], sj1[idx], sv2[idx], sj2[idx] = (a1[keep], b1[keep],
+                                                      a2[keep], b2[keep])
+        v1, j1, v2, j2 = lex_merge_top2((v1, j1, v2, j2),
+                                        (sv1, sj1, sv2, sj2))
+    cmin = (colkey >> np.uint64(32)).astype(np.uint32).view(np.float32)
+    crow = (colkey & np.uint64(_M32_NP)).astype(np.int64)
+    assert ((crow == NO_ROW) == (cmin == np.float32(3e38))).all()
+    return v1, j1, v2, j2, cnt, cmin, crow, skipped
+
+
+_M32_NP = 0xFFFFFFFF
+
+
+def _none_col_args(rng, S, C, tie_block: bool):
+    a = list(_sweep_args(rng, S, C, NoFeatures(S), 1.0, 0.0))
+    if tie_block:
+        # row 2k + 1 copies row 2k (coordinates and mask): every column's
+        # least CD sits at two rows, and the lower must win
+        kp_s, ms = a[0].clone(), a[3].clone()
+        n = S // 2
+        kp_s[1::2] = kp_s[0::2][:n]
+        ms[1::2] = ms[0::2][:n]
+        a[0], a[3] = kp_s, ms
+    return tuple(a)
+
+
+@pytest.mark.parametrize("S,C,splits,tie_block", [
+    (300, 400, 1, False), (300, 400, 3, False), (1024, 640, 2, True),
+    (257, 129, 2, True)])
+def test_none_col_blocking_model_matches_plain(S, C, splits, tie_block):
+    """The blocking of K5-none-col (rows NR at a time, compacted columns, a
+    column's key reduced over a warp's lanes, then over row blocks and
+    column splits, in shuffled orders) gives the plain version's top-2,
+    count and cmin / crow bit for bit, with masked rows and columns and on
+    a tie block."""
+    rng = np.random.default_rng(S + C + splits)
+    a = _none_col_args(rng, S, C, tie_block)
+    want = stream_sweep_plain(*a, tc=96, col_side=True)
+    v1, j1, v2, j2, cnt, cmin, crow, skipped = _none_col_model(a, splits,
+                                                              rng)
+    assert torch.equal(v1, want.v1) and torch.equal(j1, want.j1)
+    assert torch.equal(v2, want.v2) and torch.equal(j2, want.j2)
+    assert cnt == int(want.cnt)
+    np.testing.assert_array_equal(cmin.view(np.uint32),
+                                  want.cmin.numpy().view(np.uint32))
+    np.testing.assert_array_equal(crow, want.crow.numpy())
+    valid = crow < 2**30
+    assert valid.sum() > 0.5 * C
+    if tie_block:
+        assert (crow[valid] % 2 == 0).all()
+    # the staged keys do prune: later row blocks rarely improve a column
+    assert skipped > 0
+
+
+def test_none_col_plain_is_the_streaming_nnr_sweep():
+    """The engine's streaming NNR sweep on the none lane is the plain
+    K5-none-col on the CPU (statistics on), and its cmin / crow answer the
+    column side of the dense CD."""
+    rng = np.random.default_rng(21)
+    S, C = 200, 260
+    a = _none_col_args(rng, S, C, True)
+    got = stream_sweep(*a, col_side=True)
+    from ghicp_tpu_torch.ops.cost_kernel import _factors, factor_ed
+    cd = np.float32(1.0) * factor_ed(_factors(a[0]), _factors(a[1]),
+                                     a[9]).numpy()
+    m = a[3].numpy()[:, None] & a[4].numpy()[None, :]
+    cdm = np.where(m, cd, np.float32(3e38))
+    want_min = cdm.min(axis=0)
+    want_row = np.where(cdm == want_min[None, :], np.arange(S)[:, None],
+                        2**30).min(axis=0)
+    want_row = np.where(want_min < np.float32(3e38), want_row, 2**30)
+    np.testing.assert_array_equal(got.cmin.numpy(), want_min)
+    np.testing.assert_array_equal(got.crow.numpy(), want_row)
+    assert np.isfinite(float(got.cd_sum)) and float(got.cnt) == m.sum()
