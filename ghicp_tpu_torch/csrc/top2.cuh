@@ -59,6 +59,18 @@ __device__ __forceinline__ Top2 t2_merge(Top2 a, Top2 b) {
   return r;
 }
 
+// The merge of a warp's 32 running top-2s, in every lane.
+__device__ __forceinline__ Top2 t2_warp_merge(Top2 t) {
+  for (int o = 16; o > 0; o >>= 1) {
+    Top2 u;
+    u.v1 = __shfl_xor_sync(0xffffffffu, t.v1, o);
+    u.j1 = __shfl_xor_sync(0xffffffffu, t.j1, o);
+    u.v2 = __shfl_xor_sync(0xffffffffu, t.v2, o);
+    t = t2_merge(t, u);
+  }
+  return t;
+}
+
 // Eight consecutive matrix entries as float, from one or two 16-byte loads
 // (the matrix element type is bf16 or float32; the row must be 16-byte
 // aligned at ``p``).

@@ -45,8 +45,11 @@ def reset_launches() -> None:
 def as_rows(x, n: int, width: int, dtype, device, what: str):
     """``x`` as a contiguous [n] (``width`` 0) or [n, width] tensor of
     ``dtype`` on ``device``, checked before a kernel gets its pointer."""
-    x = torch.as_tensor(x)
     shape = (n,) if width == 0 else (n, width)
+    if (torch.is_tensor(x) and x.dtype == dtype and x.device == device
+            and x.shape == shape and x.is_contiguous()):
+        return x
+    x = torch.as_tensor(x)
     if tuple(x.shape) != shape:
         raise ValueError(f"{what}: expected shape {shape}, got "
                          f"{tuple(x.shape)}")

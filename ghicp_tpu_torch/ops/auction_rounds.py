@@ -33,6 +33,7 @@ Semantics of one phase (both versions):
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import torch
 
@@ -42,6 +43,13 @@ from ghicp_tpu_torch.ops.cost_kernel import _f32, _factors, factor_cost
 NEG = -3.0e38
 _BIG = 2**31 - 1
 MAX_TILES = 1024
+TRACE_SWEEPS = 30      # K3's trace: active tiles of at most this many sweeps
+PART_MAX = 16          # K3: most column parts of one Gauss-Seidel row
+_SMEM_MAX = 232448     # shared memory a block may take on this card
+LUT_N = 0x3F81         # K3's table of the mult FD factor: bf16 0 ... 1.0
+_LUT_BYTES = (LUT_N * 4 + 15) & ~15
+# orderable key of the benefit floor NEG (the float's bits inverted)
+_NEG_KEY = ~struct.unpack("<I", struct.pack("<f", NEG))[0] & 0x7FFFFFFF
 
 
 def gs_tile_rows(C: int) -> int:
@@ -50,6 +58,31 @@ def gs_tile_rows(C: int) -> int:
     while ts > 16 and ts * C > 256 * 8192:
         ts //= 2
     return ts
+
+
+def warm_smem_bytes(S: int, C: int, ts: int, lut: bool = False) -> int:
+    """K3's dynamic shared memory a block (``csrc/auction.cu::warm_smem``):
+    the larger of sweep 0's staging (two buffers of six 1024-column
+    arrays) and the Gauss-Seidel replica (prices and owners [C], open flags
+    [S], a tile's keys, rows and columns, the tile counts and list, part
+    slots), plus the mult form's FD factor table with ``lut``."""
+    stage = 2 * 6 * 1024 * 4
+    replica = (8 * C + 16 * ts + 8 * (S // ts) + 16 * 16 + 12 * 1024 + 16
+               + ((S + 15) & ~15))
+    return max(stage, replica) + (_LUT_BYTES if lut else 0)
+
+
+def warm_kernel_fits(S: int, C: int, ts: int) -> bool:
+    """Whether K3 can run at this shape: its replica fits a block's shared
+    memory and a tile has at most 512 rows (one thread a row in the
+    resolve).  Larger engines take the K1 + K2 solve instead."""
+    return ts <= 512 and warm_smem_bytes(S, C, ts) <= _SMEM_MAX
+
+
+def warm_table_fits(S: int, C: int, ts: int) -> bool:
+    """Whether K3's bf16 mult form keeps its FD factor table in shared
+    memory at this shape (else it computes expf / logf an entry)."""
+    return warm_smem_bytes(S, C, ts, lut=True) <= _SMEM_MAX
 
 
 def escalation_schedule(max_rounds: int, esc_after: int,
@@ -103,9 +136,11 @@ def _tile_bid_resolve(rows_b, sl, gid, p, owner, sunk, open_, eps_r, sink):
 
 
 def _gs_sweeps_plain(mat, p, owner, sunk, open_, eps, sink, sched, r0,
-                     max_rounds, ts):
+                     max_rounds, ts, active=None):
     """Gauss-Seidel sweeps over the active tiles (state updated in place);
-    ``mat`` rows are the benefits.  Returns the sweep count."""
+    ``mat`` rows are the benefits.  Returns the sweep count; appends each
+    sweep's (active tiles, open rows of those tiles as each was reached) to
+    the list ``active``."""
     S = mat.shape[0]
     n_tiles = S // ts
     sched = sched.to(p.device)
@@ -115,11 +150,17 @@ def _gs_sweeps_plain(mat, p, owner, sunk, open_, eps, sink, sched, r0,
         if int(per_tile.sum()) == 0 or r >= max_rounds:
             break
         eps_r = eps * sched[r]
-        for t in torch.nonzero(per_tile > 0).flatten().tolist():
+        tiles = torch.nonzero(per_tile > 0).flatten().tolist()
+        scans = 0
+        for t in tiles:
             sl = slice(t * ts, (t + 1) * ts)
+            if active is not None:
+                scans += int(open_[sl].sum())
             gid = torch.arange(t * ts, (t + 1) * ts, device=p.device)
             _tile_bid_resolve(mat[sl], sl, gid, p, owner, sunk, open_, eps_r,
                               sink)
+        if active is not None:
+            active.append((len(tiles), scans))
         r += 1
     return r
 
@@ -164,9 +205,17 @@ def factor_benefits(ks, kt, fd, mask_s, mask_t, wed, wfd, scale,
 def auction_warm_fused_plain(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd,
                              scale, p0, owner0, acol0, sunk0, own_ok, sink,
                              eps_abs, rel_eps, dpen, max_rounds: int,
-                             ts: int, sched=None, mult_blend: bool = False):
+                             ts: int, sched=None, mult_blend: bool = False,
+                             prep=None):
     """Plain PyTorch version of K3: sweep 0, keep test + round 0, GS
-    sweeps on the rebuilt benefits, greedy completion from the hints."""
+    sweeps on the rebuilt benefits, greedy completion from the hints.
+    With ``prep`` (:class:`WarmInputs`) the target factors, the FD and the
+    masks are its own, and its ``trace`` gets the kernel's record."""
+    if prep is not None:
+        kt, fd = prep.kt_rows, prep.fd
+        mask_s, mask_t = prep.mask_s, prep.mask_t
+    else:
+        kt = _factors(kp_t)
     S, C = fd.shape
     dev = fd.device
     f = lambda x: torch.tensor(_f32(x), dtype=torch.float32, device=dev)
@@ -174,8 +223,8 @@ def auction_warm_fused_plain(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd,
     sink_t = f(sink)
     if sched is None:
         sched = escalation_schedule(max_rounds, 0, 1)
-    bt = factor_benefits(_factors(kp_s), _factors(kp_t), fd, mask_s, mask_t,
-                         wed, wfd, scale, mult_blend)
+    bt = factor_benefits(_factors(kp_s), kt, fd, mask_s, mask_t, wed, wfd,
+                         scale, mult_blend)
     p0 = p0.to(torch.float32)
     # ---- sweep 0 ----
     v = bt - p0[None, :]
@@ -228,8 +277,13 @@ def auction_warm_fused_plain(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd,
     ext.scatter_(0, torch.where(vic >= 0, vic, S), 1)
     open_ = ext[:S].clone()
     # ---- Gauss-Seidel sweeps ----
+    active = []
     r = _gs_sweeps_plain(bt, p, owner, sunk, open_, eps, sink_f, sched, 1,
-                         int(max_rounds), ts)
+                         int(max_rounds), ts, active)
+    if prep is not None:
+        rec = ([int(bidding.sum()), r, sum(n for _, n in active)]
+               + [a for a, _ in active[:TRACE_SWEEPS]])
+        prep.trace[:len(rec)] = torch.tensor(rec, dtype=torch.int32)
     # ---- greedy completion from the parked hints ----
     v1n = v1 + (p0[j1] - p[j1])
     gcol = torch.where(open_ > 0, torch.where(v1n > sink_f, j1, C),
@@ -341,9 +395,11 @@ def _lib():
         lib.gs_phase.argtypes = ([_VP, _I] + [_VP] * 7 + [_F, _F]
                                  + [_I] * 5 + [_VP] * 3)
         lib.gs_phase.restype = _I
-        lib.warm_fused.argtypes = ([_VP, _I] + [_VP] * 9 + [_F] * 3 + [_I]
-                                   + [_F] * 4 + [_I] * 4 + [_VP] * 16)
+        lib.warm_fused.argtypes = ([_VP, _I, _I] + [_VP] * 11 + [_F] * 5
+                                   + [_I] * 4 + [_VP] * 18)
         lib.warm_fused.restype = _I
+        lib.warm_fused_smem.argtypes = [_I, _I, _I, _I]
+        lib.warm_fused_smem.restype = ctypes.c_size_t
         lib._typed = True
     return lib
 
@@ -414,61 +470,122 @@ def auction_phase_gs(b, p0, owner0, sunk0, open0, eps, sink, max_rounds: int,
     return auction_phase_gs_plain(*args)
 
 
+class WarmInputs:
+    """What every warm solve of one engine run reads unchanged, made once
+    where the engine body is built and passed to each
+    :func:`auction_warm_fused` call: the FD, the masks, the target factor
+    rows ``kt_rows`` [C, 4] (x, y, z, |t|^2) and, for the kernel, ``kt``
+    [5, C] (those columns and the target mask as 0 / 1); the escalation
+    tables by (budget, esc_after, esc_period); on the card the kernel's
+    scratch.  The scratch serves one launch at a time, on one stream.
+    After each call ``trace`` holds [rows open after the keep test, sweeps,
+    rows scanned in the sweeps after round 0, active tiles of sweep 1, 2,
+    ...] (up to ``TRACE_SWEEPS`` sweeps)."""
+
+    def __init__(self, kp_t, fd, mask_s, mask_t, ts: int):
+        S, C = fd.shape
+        dev = fd.device
+        self.ts = int(ts)
+        self.fd = fd.contiguous()
+        self.mask_s = as_rows(mask_s, S, 0, torch.bool, dev, "mask_s")
+        self.mask_t = as_rows(mask_t, C, 0, torch.bool, dev, "mask_t")
+        self.kt_rows = _factors(as_rows(kp_t, C, 3, torch.float32, dev,
+                                        "kp_t"))
+        self.kt = torch.cat([self.kt_rows.t(),
+                             self.mask_t[None].to(torch.float32)]).contiguous()
+        self.trace = torch.zeros((3 + TRACE_SWEEPS,), dtype=torch.int32,
+                                 device=dev)
+        self._sched = {}
+        self.scratch = None
+        if dev.type == "cuda":
+            _check_shapes(S, C, self.ts, "auction_warm_fused")
+            if not warm_kernel_fits(S, C, self.ts):
+                raise ValueError(f"auction_warm_fused: S={S}, C={C}, "
+                                 f"ts={ts} exceed a block's shared memory "
+                                 "or 512 rows a tile")
+            for lut in (False, True):
+                got = _lib().warm_fused_smem(S, C, self.ts, int(lut))
+                if got != warm_smem_bytes(S, C, self.ts, lut):
+                    raise RuntimeError(
+                        f"auction_warm_fused: the kernel takes {got} bytes "
+                        f"of shared memory, warm_smem_bytes says "
+                        f"{warm_smem_bytes(S, C, self.ts, lut)}")
+            self.f32 = _matrix_dtype(self.fd, "auction_warm_fused")
+            e = lambda n, dt: torch.empty((n,), dtype=dt, device=dev)
+            i32, f32 = torch.int32, torch.float32
+            # the kernel leaves bid and cnt at zero and bmax at the
+            # orderable key of the benefit floor, as it finds them
+            self.scratch = (
+                torch.zeros((C,), dtype=torch.int64, device=dev),   # bid
+                e(S, i32), e(C, i32),                               # open, vic
+                e(S, f32), e(S, i32), e(S, f32), e(S, f32),         # hints
+                e(2 * self.ts * PART_MAX * 3, f32),                 # part
+                torch.full((1,), _NEG_KEY, dtype=i32, device=dev),  # bmax
+                torch.zeros((1,), dtype=i32, device=dev))           # cnt
+            # the launch's fixed pointers, read once
+            self.ptrs = tuple(x.data_ptr() for x in (
+                self.fd, self.kt, self.mask_s, *self.scratch, self.trace))
+
+    def schedule(self, max_rounds: int, esc_after: int, esc_period: int):
+        """The escalation table on this run's device, made once a key."""
+        key = (int(max_rounds), int(esc_after), int(esc_period))
+        if key not in self._sched:
+            self._sched[key] = escalation_schedule(*key).to(self.fd.device)
+        return self._sched[key]
+
+
+def _device_scalar(x, dev) -> torch.Tensor:
+    """A float32 scalar on ``dev`` for the kernel to read: a tensor as it
+    is (no host round trip), a Python float filled on the device."""
+    if torch.is_tensor(x):
+        if x.dtype == torch.float32 and x.device == dev and x.numel() == 1:
+            return x
+        return x.to(device=dev, dtype=torch.float32).reshape(())
+    return torch.full((), float(x), dtype=torch.float32, device=dev)
+
+
 def auction_warm_fused_cuda(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
                             p0, owner0, acol0, sunk0, own_ok, sink, eps_abs,
                             rel_eps, dpen, max_rounds: int, ts: int,
-                            sched=None, mult_blend: bool = False):
-    """Launch K3 on the card (bf16 or float32 FD)."""
-    from ghicp_tpu_torch.ops._build import check, ptr
-    S, C = fd.shape
-    _check_shapes(S, C, ts, "auction_warm_fused")
-    f32_mat = _matrix_dtype(fd, "auction_warm_fused")
-    dev = fd.device
-    f32, i32 = torch.float32, torch.int32
-    fd = fd.contiguous()
-    ks = _factors(as_rows(kp_s, S, 3, f32, dev, "kp_s"))
-    kt = _factors(as_rows(kp_t, C, 3, f32, dev, "kp_t"))
-    ms = as_rows(mask_s, S, 0, i32, dev, "mask_s")
-    mt = as_rows(mask_t, C, 0, i32, dev, "mask_t")
+                            sched=None, mult_blend: bool = False, *, prep):
+    """Launch K3 on the card (bf16 or float32 FD) with the prepared
+    ``prep`` (:class:`WarmInputs`; ``kp_t``, ``fd`` and the masks are
+    its): no target factors and no host-to-device copy a call."""
+    from ghicp_tpu_torch.ops._build import check
+    S, C = prep.fd.shape
+    dev = prep.fd.device
+    if ts != prep.ts:
+        raise ValueError(f"auction_warm_fused: ts {ts}, prepared for "
+                         f"{prep.ts}")
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    kps = as_rows(kp_s, S, 3, f32, dev, "kp_s")
     p0 = as_rows(p0, C, 0, f32, dev, "p0")
-    acol0 = as_rows(acol0, S, 0, i32, dev, "acol0")
+    if p0.data_ptr() % 16:
+        p0 = p0.clone()
+    owner0 = as_rows(owner0, C, 0, i64, dev, "owner0")
+    acol0 = as_rows(acol0, S, 0, i64, dev, "acol0")
     sunk0 = as_rows(sunk0, S, 0, i32, dev, "sunk0")
-    own_ok = as_rows(own_ok, S, 0, i32, dev, "own_ok")
+    own_ok = as_rows(own_ok, S, 0, torch.bool, dev, "own_ok")
     if sched is None:
-        sched = escalation_schedule(max_rounds, 0, 1)
+        sched = prep.schedule(max_rounds, 0, 1)
     sched = as_rows(sched, max(int(max_rounds), 1), 0, f32, dev, "sched")
-    p = p0.clone()
-    owner = as_rows(owner0, C, 0, i32, dev, "owner0").clone()
-    sunk = torch.zeros((S,), dtype=torch.int32, device=dev)
-    open_ = torch.zeros((S,), dtype=torch.int32, device=dev)
-    gcol = torch.full((S,), -1, dtype=torch.int32, device=dev)
-    rounds = torch.zeros((1,), dtype=torch.int32, device=dev)
-    stats = torch.zeros((4,), dtype=torch.float32, device=dev)
-    bid = torch.zeros((C,), dtype=torch.int64, device=dev)
-    rowdec = torch.empty((ts,), dtype=torch.int32, device=dev)
-    vic = torch.empty((C,), dtype=torch.int32, device=dev)
-    hv1 = torch.empty((S,), dtype=torch.float32, device=dev)
-    hj1 = torch.empty((S,), dtype=torch.int32, device=dev)
-    hv2 = torch.empty((S,), dtype=torch.float32, device=dev)
-    hvsel = torch.empty((S,), dtype=torch.float32, device=dev)
-    # orderable encoding of -3e38 (the benefit floor): ~bits(-3e38)
-    neg_bits = int(torch.tensor([NEG], dtype=torch.float32)
-                   .view(torch.int32)) & 0xFFFFFFFF
-    bmax = torch.tensor([(~neg_bits) & 0x7FFFFFFF], dtype=torch.int32,
-                        device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    sink, dpen = _device_scalar(sink, dev), _device_scalar(dpen, dev)
+    e = lambda n, dt: torch.empty((n,), dtype=dt, device=dev)
+    p, owner, sunk, gcol = e(C, f32), e(C, i32), e(S, i32), e(S, i32)
+    rounds, stats = e(1, i32), e(4, f32)
+    fd_p, kt_p, ms_p, *scratch = prep.ptrs
     rc = _lib().warm_fused(
-        ptr(fd), int(f32_mat), ptr(ks), ptr(kt), ptr(ms), ptr(mt), ptr(p0), ptr(acol0),
-        ptr(sunk0), ptr(own_ok), ptr(sched), _f32(wed), _f32(wfd),
-        _f32(scale), int(bool(mult_blend)), _f32(sink), _f32(eps_abs),
-        _f32(rel_eps), _f32(dpen),
-        int(max_rounds), S, C, ts,
-        ptr(p), ptr(owner), ptr(sunk), ptr(open_), ptr(gcol), ptr(rounds),
-        ptr(stats), ptr(bid), ptr(rowdec), ptr(vic), ptr(hv1), ptr(hj1),
-        ptr(hv2), ptr(hvsel), ptr(bmax), _VP(stream))
+        fd_p, int(prep.f32), int(bool(mult_blend)), kps.data_ptr(), kt_p,
+        ms_p, p0.data_ptr(), owner0.data_ptr(), acol0.data_ptr(),
+        sunk0.data_ptr(), own_ok.data_ptr(), sched.data_ptr(),
+        sink.data_ptr(), dpen.data_ptr(), wed, wfd, scale, eps_abs, rel_eps,
+        int(max_rounds), S, C, ts, p.data_ptr(), owner.data_ptr(),
+        sunk.data_ptr(), gcol.data_ptr(), rounds.data_ptr(),
+        stats.data_ptr(), *scratch,
+        torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "auction_warm_fused launch")
     count_launch("auction_warm_fused" + ("_mult" if mult_blend else "")
-                 + ("_f32" if f32_mat else ""))
+                 + ("_f32" if prep.f32 else ""))
     return p, owner, sunk, rounds[0], gcol, stats
 
 
@@ -476,20 +593,27 @@ def auction_warm_fused(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale, p0,
                        owner0, acol0, sunk0, own_ok, sink, eps_abs, rel_eps,
                        dpen, max_rounds: int, ts: int = 128,
                        esc_after: int = 1, esc_period: int = 1,
-                       mult_blend: bool = False):
+                       mult_blend: bool = False, prep=None):
     """Single-launch warm engine iteration.  ``p0`` [C] bidding-start
     prices; ``owner0`` [C] row id or -1; ``acol0`` [S] previous real column
     or -1; ``sunk0`` [S] (1 = previously sunk); ``own_ok`` [S] (row still
-    owns its acol0 column).  Returns (p, owner, sunk, rounds, gcol,
-    stats [b_max, 0, eps, eps_keep]); ``rounds`` counts round 0 too.
-    ``mult_blend``: the FPFH/RoPS cost, k in the ``wfd`` slot."""
-    sched = escalation_schedule(max_rounds, esc_after, esc_period)
+    owns its acol0 column); ``sink`` and ``dpen`` floats or float32 scalar
+    tensors (read on the card, no host round trip).  ``prep``: the
+    :class:`WarmInputs` of ``kp_t``, ``fd`` and the masks, made once by the
+    caller for all solves against that target (then its tensors are used
+    and those arguments only give the shapes); made here when None.
+    Returns (p, owner, sunk, rounds, gcol, stats [b_max, 0, eps,
+    eps_keep]); ``rounds`` counts round 0 too.  ``mult_blend``: the
+    FPFH/RoPS cost, k in the ``wfd`` slot."""
+    if prep is None:
+        prep = WarmInputs(kp_t, fd, mask_s, mask_t, ts)
+    sched = prep.schedule(max_rounds, esc_after, esc_period)
     args = (kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale, p0, owner0,
             acol0, sunk0, own_ok, sink, eps_abs, rel_eps, dpen,
             int(max_rounds), ts, sched, mult_blend)
     if require_device(fd, "auction_warm_fused") == "cuda":
-        return auction_warm_fused_cuda(*args)
-    return auction_warm_fused_plain(*args)
+        return auction_warm_fused_cuda(*args, prep=prep)
+    return auction_warm_fused_plain(*args, prep=prep)
 
 
 def _jacobi_cuda(b, p0, owner0, sunk0, eps, sink, n_rounds: int,

@@ -73,8 +73,10 @@ from ghicp_tpu_torch.matching.matchers import (MatchResult, nn_match,
                                                nnr_match)
 from ghicp_tpu_torch.matching.stream_auction import (StreamCarry, carry_init,
                                                      stream_solve)
-from ghicp_tpu_torch.ops.auction_rounds import (auction_warm_fused,
-                                                gs_tile_rows)
+from ghicp_tpu_torch.ops.auction_rounds import (WarmInputs,
+                                                auction_warm_fused,
+                                                gs_tile_rows,
+                                                warm_kernel_fits)
 from ghicp_tpu_torch.ops.cost_kernel import fused_benefit, mult_cost
 from ghicp_tpu_torch.ops.stream_kernel import stream_selected, stream_sweep
 from ghicp_tpu_torch.registration.estimator import estimate
@@ -327,11 +329,18 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
                            st.para1, st.para2, scale_t, _f(wed, dev),
                            _f(wfd, dev), config.penalty_initial)
     ts_gs = gs_tile_rows(T)
+    # K3 keeps a replica of the prices, owners and open flags in each
+    # block's shared memory: an engine too large for it takes full_solve
     use_warm_kernel = (not use_stream and config.warm_fused_kernel
                        and (bsc or mult) and config.auction_round_kernel
                        and config.auction_phases == 1
                        and S % ts_gs == 0 and S >= 1024 and T >= 1024
-                       and ts_gs * T <= 256 * 8192)
+                       and ts_gs * T <= 256 * 8192
+                       and warm_kernel_fits(S, T, ts_gs))
+    # what every warm solve of this run reads unchanged (target factors,
+    # masks, FD, the kernel's scratch), made once here
+    warm_in = (WarmInputs(kp_t_c, fd_b, mask_s, mask_t, ts_gs)
+               if use_warm_kernel else None)
 
     def full_solve(st, it_eff, wed, wfd, budget, kps_c, p_mid):
         (b, cnt, s1, s2, _cm, ed_max_f, b_max, v1_mid,
@@ -367,11 +376,13 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
         own_ok = real0 & (owner0[jc0] == rows)
         acol_real = torch.where(real0, st.acol, -1)
         sunk0 = (st.acol == SINK).to(torch.int32)
+        # sink and dpen stay on the device: the kernel reads them there
         args = (kps_c, kp_t_c, fd_b, mask_s, mask_t, wed, wfd, scale,
-                p_start, owner0, acol_real, sunk0, own_ok, float(-penalty),
-                config.km_eps, config.auction_rel_eps, float(dpen), budget)
+                p_start, owner0, acol_real, sunk0, own_ok, -penalty,
+                config.km_eps, config.auction_rel_eps, dpen, budget)
         kwargs = dict(ts=ts_gs, esc_after=max(budget // 4, 1),
-                      esc_period=max(budget // 16, 1), mult_blend=mult)
+                      esc_period=max(budget // 16, 1), mult_blend=mult,
+                      prep=warm_in)
         return penalty, p_start, args, kwargs
 
     def warm_solve(st, it_eff, wed, wfd, budget, kps_c, owner0, real0):

@@ -63,9 +63,17 @@ def test_compare_phase_at_small_size(monkeypatch):
             # the open rows of each round decide: bytes or operations
             assert r["bound_by"] in ("bytes", "operations")
             continue
+        # K3-mult at this size: the 132 blocks' FD factor tables outweigh
+        # the FD's bytes, so operations bound it
         assert r["bound_by"] == ("operations" if r["name"] in (
             "nms_exact", "stream_sweep", "stream_sweep_col",
-            "stream_sweep_none", "stream_sweep_none_col") else "bytes")
+            "stream_sweep_none", "stream_sweep_none_col",
+            "auction_warm_fused_mult") else "bytes")
+        if r["name"].startswith("auction_warm_fused"):
+            # the call and the kernel alone, at the engine budget and 16
+            assert min(r["kernel_ms"], r["budget16_ms"],
+                       r["budget16_kernel_ms"]) > 0
+            assert r["budget16_bound_ms"] >= r["bound_ms"]
         if r["name"] == "top2_rows":
             assert r["library_ms"] > 0
         else:
@@ -210,3 +218,42 @@ def test_save_engine_record_round_trips(tmp_path):
     np.testing.assert_array_equal(d["T_gt"], np.eye(4, dtype=np.float32))
     assert int(d["iterations"]) == 30
     assert config_from_dict(json.loads(str(d["config"]))) == cfg
+
+
+def test_k3_traces_logs_the_engine_launches(capsys):
+    """k3_traces around an engine run at S = T = 1024 (the smallest size
+    that takes K3; the plain version writes the same trace): the launches
+    of each budget, the rows open after the keep test, the sweeps and the
+    active tiles, the first launch held again at its budget and at 16;
+    and K3's operations an entry without a CUDA toolkit."""
+    from ghicp_tpu_torch.core.config import GHICPConfig
+    from ghicp_tpu_torch.io.synthetic import registration_problem
+    from ghicp_tpu_torch.registration.ghicp import ghicp_register_chunked
+    src, tgt, fd, _, _, _ = registration_problem(1024, 1024, seed=3)
+    ones = np.ones(1024, bool)
+    cfg = GHICPConfig(max_iterations=5, converge_translation=0.0,
+                      converge_rotation=0.0)
+    with chip_smoke.k3_traces("rehearsal", hold=1):
+        ghicp_register_chunked(src, ones, tgt, ones, fd, 40.0, cfg,
+                               device="cpu")
+    out = capsys.readouterr().out
+    assert ("K3 traces, rehearsal, budget 2: 3 launches, rows open after "
+            "the keep test") in out
+    for budget in (2, 16):
+        assert (f"K3 on the engine's state (rehearsal), budget {budget}: "
+                "trace [") in out
+    assert out.count("bit-equal to the plain version True") == 2
+    assert "sweeps [" in out and "active tiles of sweep 1" in out
+    c = chip_smoke.SASS_COUNTS
+    base = chip_smoke.K3_ENTRY_OPS + c["sqrt"]
+    exp_log = c["exp"] + c["log"]
+    assert chip_smoke.k3_ops(8192, 8192, 256, False, False, 132) == (base, 0)
+    # the bf16 mult form looks its factor up in the table each block fills
+    # once; float32, or a shape where the table does not fit, computes it
+    table = 132 * 0x3F81 * (exp_log + chip_smoke.K3_TABLE_EXTRA_OPS)
+    assert chip_smoke.k3_ops(8192, 8192, 256, True, False, 132) == (
+        base + chip_smoke.K3_LUT_OPS, table)
+    assert chip_smoke.k3_ops(8192, 8192, 256, True, True, 132) == (
+        base + exp_log, 0)
+    assert chip_smoke.k3_ops(20480, 20480, 64, True, False, 132) == (
+        base + exp_log, 0)

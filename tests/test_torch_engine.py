@@ -312,6 +312,41 @@ def test_none_km_never_takes_the_warm_kernel(problem, monkeypatch):
     assert int(got.iterations) == 4 and calls == []
 
 
+def test_warm_kernel_only_where_its_shared_memory_fits(problem,
+                                                       monkeypatch):
+    """K3 keeps a replica of the prices, the owners and the open flags in
+    each block's shared memory, so an engine past about 23,500 keypoint
+    slots (24,576 or 32,768, with streaming_cost='off' or an explicit
+    keypoint_capacity) takes the K1 + K2 solve instead of raising.  The
+    gate at those sizes; and the engine at S = T = 1024 with a block's
+    shared memory set one byte under K3's need: no K3 call, the run
+    completes (with the real limit, K3 from the third iteration on)."""
+    import ghicp_tpu_torch.ops.auction_rounds as ar
+    import ghicp_tpu_torch.registration.ghicp as tgh
+    for n in (1024, 8192, 16384, 23552):
+        assert ar.warm_kernel_fits(n, n, ar.gs_tile_rows(n))
+    for n in (24576, 32768):
+        assert not ar.warm_kernel_fits(n, n, ar.gs_tile_rows(n))
+    src, tgt, fd, _, _, _ = problem
+    ones = np.ones(S, bool)
+    cfg = _port_cfg(dataclasses.replace(BASE, max_iterations=4,
+                                        converge_translation=0.0,
+                                        converge_rotation=0.0))
+    warm = tgh.auction_warm_fused
+    need = ar.warm_smem_bytes(S, T, ar.gs_tile_rows(T))
+    for smem, want in ((ar._SMEM_MAX, 2), (need - 1, 0)):
+        calls = []
+
+        def spy(*a, **k):
+            calls.append(1)
+            return warm(*a, **k)
+        monkeypatch.setattr(ar, "_SMEM_MAX", smem)
+        monkeypatch.setattr(tgh, "auction_warm_fused", spy)
+        got = ghicp_register_chunked(src, ones, tgt, ones, fd, 40.0, cfg,
+                                     device="cpu")
+        assert int(got.iterations) == 4 and len(calls) == want
+
+
 def _port_cfg(cfg):
     return config_from_dict(dataclasses.asdict(cfg))
 
@@ -389,3 +424,72 @@ def test_none_km_one_iteration_from_identical_state(small, interpret):
     np.testing.assert_allclose(got.price_unc.numpy(),
                                np.asarray(want.price_unc), rtol=1e-4,
                                atol=1e-6)
+
+
+def _bits(d):
+    """A state dict of :func:`_to_numpy` with float arrays as their bits."""
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out[k] = _bits(v)
+        else:
+            v = np.asarray(v)
+            out[k] = v.view(np.uint32) if v.dtype == np.float32 else v
+    return out
+
+
+@pytest.mark.parametrize("feature", [FeatureType.BSC, FeatureType.FPFH])
+def test_prepared_warm_inputs_match_per_call(problem, feature, monkeypatch):
+    """The warm solves of two engine runs on different targets of the same
+    shape, their iterations interleaved: each run's solves take the
+    WarmInputs (target factors, masks, FD) made once by its own body, and
+    sink and the penalty step as tensors (no host read); the states equal,
+    bit for bit, those of per-call preparation (no WarmInputs, sink and
+    the step as host floats)."""
+    from ghicp_tpu_torch.ops.auction_rounds import WarmInputs
+    from ghicp_tpu_torch.registration import ghicp as tgh
+    src, tgt, fd, _, _, _ = problem
+    tgt2 = (tgt[::-1] + np.float32(0.05)).astype(np.float32)
+    fd2 = np.ascontiguousarray(fd[:, ::-1])
+    if feature == FeatureType.FPFH:
+        fd, fd2 = (np.clip(1.0 - x / 200.0, 0.0, 1.0).astype(np.float32)
+                   for x in (fd, fd2))
+    cfg = _port_cfg(dataclasses.replace(BASE, feature=feature,
+                                        converge_translation=0.0,
+                                        converge_rotation=0.0))
+    m = torch.ones(S, dtype=torch.bool)
+    warm = tgh.auction_warm_fused
+
+    def run(prepared: bool):
+        seen = []
+
+        def spy(*a, prep=None, **k):
+            seen.append((prep, a[13], a[16]))
+            if prepared:
+                return warm(*a, prep=prep, **k)
+            a = a[:13] + (float(a[13]),) + a[14:16] + (float(a[16]),) + a[17:]
+            return warm(*a, **k)
+        monkeypatch.setattr(tgh, "auction_warm_fused", spy)
+        bodies = [tgh.make_body(torch.from_numpy(t), m, m,
+                                torch.from_numpy(f), 40.0, cfg)
+                  for t, f in ((tgt, fd), (tgt2, fd2))]
+        states = [tgh.initial_state(torch.from_numpy(src), T, cfg)] * 2
+        out = []
+        for _ in range(5):
+            states = [b(st) for b, st in zip(bodies, states)]
+            out.append([_bits(_to_numpy(st)) for st in states])
+        return out, seen
+
+    got, seen = run(True)
+    want, seen_per_call = run(False)
+    # iterations 2-4 of both runs took K3, alternating between the runs
+    assert len(seen) == len(seen_per_call) == 6
+    preps = [p for p, _, _ in seen]
+    assert all(isinstance(p, WarmInputs) for p in preps)
+    assert preps[0::2] == [preps[0]] * 3 and preps[1::2] == [preps[1]] * 3
+    assert preps[0] is not preps[1]
+    assert all(torch.is_tensor(s) and torch.is_tensor(d)
+               for _, s, d in seen)
+    for g_it, w_it in zip(got, want):
+        for g, w in zip(g_it, w_it):
+            np.testing.assert_equal(g, w)
