@@ -16,6 +16,7 @@ import torch
 
 from ghicp_tpu_torch.core.config import (CorrespondenceType, FeatureType,
                                          GHICPConfig)
+from ghicp_tpu_torch.core.device import DeviceLike, resolve_device
 from ghicp_tpu_torch.features.bsc import pack_bits
 from ghicp_tpu_torch.matching.stream_auction import StreamCarry, carry_init
 from ghicp_tpu_torch.ops.stream_kernel import (DescFeatures, StreamFeatures,
@@ -49,10 +50,12 @@ def config_to_dict(config: GHICPConfig) -> dict:
 
 
 def stream_features_from_numpy(fs, ft, na, nb, n_bits: int = 441,
-                               device="cpu") -> StreamFeatures:
+                               device: DeviceLike = None) -> StreamFeatures:
     """The port's packed factors from the JAX ``StreamFeatures`` fields as
     numpy arrays: unpacked {0, 1} bits ``fs`` [V, S, F] and ``ft`` [C, F]
-    (F >= n_bits, zero-padded), popcounts ``na`` [V, S] and ``nb`` [C]."""
+    (F >= n_bits, zero-padded), popcounts ``na`` [V, S] and ``nb`` [C]; on
+    the card unless ``device`` says otherwise."""
+    device = resolve_device(device)
     n_words = -(-n_bits // 32)
     bits = lambda x: torch.tensor(
         np.asarray(x)[..., :32 * n_words].astype(np.int64), device=device)
@@ -62,12 +65,14 @@ def stream_features_from_numpy(fs, ft, na, nb, n_bits: int = 441,
         torch.tensor(np.asarray(nb, np.float32), device=device))
 
 
-def desc_features_from_numpy(fs, ft, dim: int, device="cpu") -> DescFeatures:
+def desc_features_from_numpy(fs, ft, dim: int,
+                             device: DeviceLike = None) -> DescFeatures:
     """The port's similarity-lane factors from the JAX descriptor
     ``StreamFeatures`` fields as numpy arrays: standardized bf16 rows
     ``fs`` [1, S, F] (or [S, F]) and ``ft`` [C, F], ``dim`` the descriptor
-    length D.  The values pass through float32, which holds every bf16
-    value exactly."""
+    length D; on the card unless ``device`` says otherwise.  The values
+    pass through float32, which holds every bf16 value exactly."""
+    device = resolve_device(device)
     rows = lambda x: torch.tensor(np.asarray(x, np.float32),
                                   device=device).to(torch.bfloat16)
     fs = rows(fs)

@@ -29,8 +29,9 @@ import torch
 
 from ghicp_tpu_torch.matching.auction import SINK
 from ghicp_tpu_torch.matching.matchers import MatchResult
-from ghicp_tpu_torch.ops.stream_kernel import (RT, stream_selected,
-                                               stream_sweep, subset_rows)
+from ghicp_tpu_torch.ops.stream_kernel import (RT, SweepTarget,
+                                               stream_selected, stream_sweep,
+                                               subset_rows)
 
 NEG = -3.0e38
 
@@ -123,7 +124,8 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
                  rel_eps: float, max_sweeps: int, p0, price_uncertainty,
                  acol0, pen_prev, carry: Optional[StreamCarry] = None,
                  stats_free: bool = False, open_cap: int = 0,
-                 compact_extra_sweeps: int = 0) -> StreamSolveResult:
+                 compact_extra_sweeps: int = 0,
+                 target: Optional[SweepTarget] = None) -> StreamSolveResult:
     """Matrix-free KM-equivalent solve for one engine iteration.
 
     ``penalty_from_stats(cd_mean, cd_std)`` gives the penalty (the engine
@@ -135,6 +137,9 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
     a block of that many rows (rounded up to the kernel's row tile) once
     they fit.  ``feats`` a ``DescFeatures``: the FPFH/RoPS lane (k in
     ``wfd``); a ``NoFeatures``: the feature-"none" lane (CD = W_ED * ED).
+    ``target``: the sweeps' target inputs (``sweep_target`` of ``kp_t``,
+    ``feats`` and ``mask_t``), made once by the caller; on the card each
+    sweep makes its own without it.
     """
     S, C = kp_s.shape[0], kp_t.shape[0]
     dev = kp_s.device
@@ -147,17 +152,16 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
     can_compact = 0 < cap < S
 
     n_compact = 0
-
     def sweep_fn(p, ac, with_stats=False):
         return stream_sweep(kp_s, kp_t, feats, mask_s, mask_t, p, ac, wed,
-                            wfd, scale, with_stats=with_stats)
+                            wfd, scale, with_stats=with_stats, target=target)
 
     def sub_sweep(idx, sub_mask, p, ac_sub):
         nonlocal n_compact
         n_compact += 1
         return stream_sweep(kp_s[idx], kp_t, subset_rows(feats, idx),
                             sub_mask, mask_t, p, ac_sub, wed, wfd, scale,
-                            with_stats=False)
+                            with_stats=False, target=target)
 
     # --- sweep 0: statistics + warm-start hints at mid-deflated prices ---
     real0 = (acol0 >= 0) & (acol0 < C)

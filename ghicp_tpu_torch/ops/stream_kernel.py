@@ -22,9 +22,9 @@ features come in two forms: packed, 32 bits a word, ``W`` words a row (14
 for the 441 bits), and unpacked, one {0, 1} int8 a bit, 448 a row.  For
 {0, 1} bits, |a| + |b| - 2 a.b = popc(a XOR b) exactly, so the plain
 version's float32 product of the unpacked bits, the tensor-core kernel's
-int8 product and the column-side kernel's XOR + POPC give the same
-integers.  On the similarity lane a product of two bf16 values is exact in
-float32, so only the order of the sum over the D dimensions matters: both
+int8 product and the gathers' XOR + POPC give the same integers.  On the
+similarity lane a product of two bf16 values is exact in float32, so only
+the order of the sum over the D dimensions matters: both
 versions add them in increasing order, and the plain one never calls a
 matrix product, whose order is its own.
 
@@ -36,7 +36,10 @@ read, CD = W_ED * ED) the float operations of ED, the blend and the
 top-2.  The bytes (coordinates and factors, read once) are a few MB.
 ``col_side`` (every lane; the reciprocal-NN matcher) adds per column the
 least CD over valid rows and the lowest row that reaches it (``cmin`` /
-``crow``).  The design notes are at the head of the CUDA source.  Every
+``crow``).  The design notes are at the head of the CUDA source: one
+register-tiled kernel a lane (the Hamming lane's on the int8 tensor
+cores), each with its column side.  What every sweep of a solve reads of
+the target is made once (:class:`SweepTarget`).  Every
 variant counts its launches under its own name (``stream_sweep``,
 ``stream_sweep_mult``, ``stream_sweep_none``, each with a ``_col`` twin),
 and once more under ``<name>@<rows>``, its rows, so that full-height and
@@ -69,8 +72,10 @@ RT = 64         # rows a block of the Hamming kernel (the compaction granule)
 HAM_TC = 64     # columns a tile of the Hamming kernel
 NONE_RT = 128   # rows a block of the none kernel
 NONE_TC = 128   # columns a tile of the none kernel
-COL_RT = 128    # rows a block of the per-pair kernels (K5-col, mult)
-TC = 128        # columns a tile of the per-pair kernels
+DESC_RT = 64    # rows a block of the similarity kernel
+DESC_TM = 4     # its rows a thread
+DESC_TN = 4     # its columns a thread takes at once
+DESC_PASS = 32  # its columns a pass
 PLAIN_TC = 1024
 _KERNEL_SHAPES = {(1, 14), (2, 14), (4, 14)}    # (V, W) instantiated
 BIT_ROW = 448   # unpacked bits a row: 14 words of 32
@@ -79,8 +84,8 @@ _M32 = 0xFFFFFFFF
 
 class StreamFeatures(NamedTuple):
     """Factor representation of the BSC feature distance: the bits packed
-    (the plain version, gathers, the column-side kernel) and unpacked (the
-    tensor-core kernel), made once a registration."""
+    (the plain version, gathers, the kernel's target tiles) and unpacked
+    (the kernel's source rows and vsel), made once a registration."""
 
     words_s: torch.Tensor   # [V, S, W] int32 source bits (variants)
     words_t: torch.Tensor   # [C, W] int32 target bits (variant 0)
@@ -372,22 +377,111 @@ def _lib():
     from ghicp_tpu_torch.ops._build import cuda_library
     lib = cuda_library("stream")
     if not getattr(lib, "_typed", False):
-        lib.stream_sweep.argtypes = ([_VP] * 8 + [_F] * 3 + [_I] * 6
-                                     + [_VP] * 13)
-        lib.stream_sweep.restype = _I
-        lib.stream_sweep_desc.argtypes = ([_VP] * 4 + [_I] * 2 + [_VP] * 4
-                                          + [_F] * 2 + [_I] * 4
-                                          + [_VP] * 13)
-        lib.stream_sweep_desc.restype = _I
-        lib.stream_sweep_tiled.argtypes = ([_VP] * 11 + [_F] * 3 + [_I] * 6
-                                           + [_VP] * 13)
+        lib.stream_sweep_tiled.argtypes = ([_I] + [_VP] * 9 + [_I] * 2
+                                           + [_VP] * 4 + [_F] * 3
+                                           + [_I] * 6 + [_VP] * 13)
         lib.stream_sweep_tiled.restype = _I
         lib._typed = True
     return lib
 
 
-def column_splits(S: int, C: int, n_sm: int, rows: int = COL_RT,
-                  cols: int = TC, per_sm: int = 2) -> int:
+def _lane(feats) -> int:
+    """The kernel entry's lane: 0 none, 1 Hamming, 2 similarity."""
+    if isinstance(feats, NoFeatures):
+        return 0
+    return 2 if isinstance(feats, DescFeatures) else 1
+
+
+class SweepTarget(NamedTuple):
+    """What every sweep of a solve reads of the target unchanged, made once
+    by :func:`sweep_target`: the columns' factor rows and int32 mask, the
+    lane's target factors in the kernel's forms, the card's SM count, a
+    NaN scalar for the statistics a sweep skips, and the identity of the
+    tensors it was made from (:func:`check_target`)."""
+
+    kt: torch.Tensor                # [C, 4] float32 (x, y, z, |t|^2)
+    mt: torch.Tensor                # [C] int32 mask
+    lane: int                       # 0 none, 1 Hamming, 2 similarity
+    rows: Optional[torch.Tensor]    # Hamming: [C, 448] int8 bits;
+                                    # similarity: [C, F] bf16 rows
+    wt: Optional[torch.Tensor]      # Hamming: [C, 14] int32 words
+    nb: Optional[torch.Tensor]      # Hamming: [C] float32 popcounts
+    n_sm: int
+    nan: torch.Tensor               # () float32 NaN
+    key: tuple                      # _target_key of its inputs
+
+
+def _target_key(kp_t, feats, mask_t) -> tuple:
+    """The identity of a sweep's target inputs: each tensor's address,
+    shape, dtype and version (an in-place write bumps it), for ``kp_t``,
+    ``mask_t`` and the lane's target factors."""
+    if isinstance(feats, DescFeatures):
+        fac = (feats.ft,)
+    elif isinstance(feats, StreamFeatures):
+        fac = (feats.bits_t, feats.words_t, feats.nb)
+    else:
+        fac = ()
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype, t._version)
+                 if isinstance(t, torch.Tensor) else id(t)
+                 for t in (kp_t, mask_t) + fac)
+
+
+def check_target(target: SweepTarget, kp_t, feats, mask_t) -> None:
+    """Raise unless ``target`` was made by :func:`sweep_target` from these
+    very tensors, unchanged since."""
+    if target.key != _target_key(kp_t, feats, mask_t):
+        raise ValueError("stream_sweep: the target was made from other "
+                         "columns, factors or mask than this sweep's (or "
+                         "they changed since)")
+
+
+def sweep_target(kp_t, feats, mask_t) -> SweepTarget:
+    """The target side of K5's inputs on ``kp_t``'s device, for every sweep
+    over these columns, factors and mask (the sweeps of one solve)."""
+    check_features(feats, "sweep_target")
+    C = kp_t.shape[0]
+    dev = kp_t.device
+    f32 = torch.float32
+    kt = _factors(as_rows(kp_t, C, 3, f32, dev, "kp_t"))
+    mt = as_rows(mask_t, C, 0, torch.int32, dev, "mask_t")
+    lane = _lane(feats)
+    rows = wt = nb = None
+    if lane == 2:
+        F = feats.ft.shape[1]
+        if not 0 < feats.dim <= F or F % 8:
+            raise ValueError(f"stream_sweep kernel: dim {feats.dim}, row "
+                             f"width {F}")
+        rows = as_rows(feats.ft, C, F, torch.bfloat16, dev, "ft")
+    elif lane == 1:
+        W = feats.words_t.shape[1]
+        rows = as_rows(feats.bits_t, C, BIT_ROW, torch.int8, dev, "bits_t")
+        wt = as_rows(feats.words_t, C, W, torch.int32, dev, "words_t")
+        nb = as_rows(feats.nb, C, 0, f32, dev, "nb")
+    n_sm = (torch.cuda.get_device_properties(dev).multi_processor_count
+            if dev.type == "cuda" else 1)
+    return SweepTarget(kt=kt, mt=mt, lane=lane, rows=rows, wt=wt, nb=nb,
+                       n_sm=n_sm, nan=torch.full((), float("nan"), dtype=f32,
+                                                 device=dev),
+                       key=_target_key(kp_t, feats, mask_t))
+
+
+def desc_tile_cols(dim: int) -> int:
+    """Columns a tile of the similarity kernel: 128 at FPFH's D = 33 (its
+    own instantiation), 64 at any other D."""
+    return 128 if dim == 33 else 64
+
+
+def lane_tile(feats) -> tuple:
+    """(rows a block, columns a tile) of the kernel of ``feats``' lane."""
+    if isinstance(feats, NoFeatures):
+        return NONE_RT, NONE_TC
+    if isinstance(feats, DescFeatures):
+        return DESC_RT, desc_tile_cols(feats.dim)
+    return RT, HAM_TC
+
+
+def column_splits(S: int, C: int, n_sm: int, rows: int, cols: int,
+                  per_sm: int) -> int:
     """Column ranges a row block of ``rows`` is split into (tiles of
     ``cols``), so that short row sets (compacted sweeps) still give every
     SM ``per_sm`` blocks; no range is left empty."""
@@ -397,128 +491,102 @@ def column_splits(S: int, C: int, n_sm: int, rows: int = COL_RT,
     return -(-n_ct // -(-n_ct // cs))
 
 
-# The tiled kernels' grids hold ~16 blocks an SM (split over columns when
-# the rows are few): the last wave of equal blocks then leaves at most
-# about a sixteenth of the card idle.
+# The kernels' grids hold ~16 blocks an SM (split over columns when the
+# rows are few): the last wave of equal blocks then leaves at most about a
+# sixteenth of the card idle.
 _TILED_PER_SM = 16
 
 
 def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
                       wfd, scale, col_side: bool = False,
-                      with_stats: bool = True) -> SweepResult:
-    """Launch K5 on the card (the similarity lane for a
-    :class:`DescFeatures`, the none lane for :class:`NoFeatures`): the
-    tiled kernels for the Hamming lane and the none lane (with or without
-    its column side), the per-pair ones for the Hamming lane's column side
-    and the similarity lane."""
-    from ghicp_tpu_torch.ops._build import check, ptr
+                      with_stats: bool = True,
+                      target: Optional[SweepTarget] = None) -> SweepResult:
+    """Launch K5 on the card, the lane of ``feats``' type, with or without
+    its column side; ``target`` (made by :func:`sweep_target` from these
+    columns, factors and mask, else raises) skips redoing the target's
+    inputs; without one the call makes it.  The
+    source rows go to the kernel as they are (it computes their norms), and
+    the statistics are reduced only when asked for."""
+    from ghicp_tpu_torch.ops._build import check
     S, C = kp_s.shape[0], kp_t.shape[0]
     dev = kp_s.device
-    f32, i32 = torch.float32, torch.int32
-    mult = isinstance(feats, DescFeatures)
-    tiled = isinstance(feats, NoFeatures) or not (mult or col_side)
-    if mult:
-        F = feats.fs.shape[1]
-        if not 0 < feats.dim <= F or F % 8:
-            raise ValueError(f"stream_sweep kernel: dim {feats.dim}, row "
-                             f"width {F}")
-        fs = as_rows(feats.fs, S, F, torch.bfloat16, dev, "fs")
-        ft = as_rows(feats.ft, C, F, torch.bfloat16, dev, "ft")
-    elif isinstance(feats, NoFeatures):
-        V = W = 0
-        ws = wt = None
+    f32, i64 = torch.float32, torch.int64
+    lane = _lane(feats)
+    if target is None:
+        target = sweep_target(kp_t, feats, mask_t)
     else:
+        check_target(target, kp_t, feats, mask_t)
+    bs = na = fs = None
+    V = D = F = 0
+    if lane == 1:
         V, _, W = feats.words_s.shape
         if (V, W) not in _KERNEL_SHAPES:
             raise ValueError(f"stream_sweep kernel: (V, W) = ({V}, {W}) not "
                              f"in {sorted(_KERNEL_SHAPES)}")
-        if tiled:
-            bs = feats.bits_s.to(device=dev, dtype=torch.int8).contiguous()
-            if tuple(bs.shape) != (V, S, BIT_ROW):
-                raise ValueError(f"bits_s: expected {(V, S, BIT_ROW)}, got "
-                                 f"{tuple(bs.shape)}")
-            bt = as_rows(feats.bits_t, C, BIT_ROW, torch.int8, dev,
-                         "bits_t")
-            wt = as_rows(feats.words_t, C, W, i32, dev, "words_t")
-            na = feats.na.to(device=dev, dtype=f32).contiguous()
-            nb = as_rows(feats.nb, C, 0, f32, dev, "nb")
-        else:
-            ws = feats.words_s.to(device=dev, dtype=i32).contiguous()
-            wt = as_rows(feats.words_t, C, W, i32, dev, "words_t")
-    ks = _factors(as_rows(kp_s, S, 3, f32, dev, "kp_s"))
-    kt = _factors(as_rows(kp_t, C, 3, f32, dev, "kp_t"))
-    ms = as_rows(mask_s, S, 0, i32, dev, "mask_s")
-    mt = as_rows(mask_t, C, 0, i32, dev, "mask_t")
+        bs = feats.bits_s.to(device=dev, dtype=torch.int8).contiguous()
+        if tuple(bs.shape) != (V, S, BIT_ROW):
+            raise ValueError(f"bits_s: expected {(V, S, BIT_ROW)}, got "
+                             f"{tuple(bs.shape)}")
+        na = feats.na.to(device=dev, dtype=f32).contiguous()
+    elif lane == 2:
+        D, F = feats.dim, target.rows.shape[1]
+        fs = as_rows(feats.fs, S, F, torch.bfloat16, dev, "fs")
+    ks = as_rows(kp_s, S, 3, f32, dev, "kp_s")     # |s|^2 in the kernel
+    ms = as_rows(mask_s, S, 0, torch.bool, dev, "mask_s")
     p = as_rows(prices, C, 0, f32, dev, "prices")
-    ac = as_rows(torch.clamp(acol.to(torch.int64), -1, 2**31 - 1), S, 0, i32,
-                 dev, "acol")
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    if not tiled:
-        rows = COL_RT
-        cs = column_splits(S, C, n_sm)
-    else:
-        rows, cols = (NONE_RT, NONE_TC) if V == 0 else (RT, HAM_TC)
-        cs = column_splits(S, C, n_sm, rows, cols, _TILED_PER_SM)
-    v1 = torch.empty((S,), dtype=f32, device=dev)
-    j1 = torch.empty((S,), dtype=i32, device=dev)
-    v2 = torch.empty((S,), dtype=f32, device=dev)
-    j2 = torch.empty((S,), dtype=i32, device=dev)
-    vsel = torch.empty((S,), dtype=f32, device=dev)
-    if cs > 1:
-        parts = [torch.empty((cs, S), dtype=t, device=dev)
-                 for t in (f32, i32, f32, i32, f32)]
-    else:
-        parts = [v1, j1, v2, j2, vsel]
+    ac = as_rows(acol, S, 0, i64, dev, "acol")
+    rows, cols = lane_tile(feats)
+    cs = column_splits(S, C, target.n_sm, rows, cols, _TILED_PER_SM)
     n_blocks = -(-S // rows) * cs
-    stats = torch.empty((n_blocks, 8), dtype=torch.float64, device=dev)
-    colkey = (torch.full((C,), _COL_KEY0, dtype=torch.int64, device=dev)
-              if col_side else None)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    vp = lambda t: _VP(None) if t is None else ptr(t)
-    outs = (ptr(v1), ptr(j1), ptr(v2), ptr(j2), ptr(vsel),
-            *[ptr(t) for t in parts], ptr(stats), vp(colkey), _VP(stream))
-    if mult:
-        rc = _lib().stream_sweep_desc(
-            ptr(ks), ptr(kt), ptr(fs), ptr(ft), feats.dim, F, ptr(ms),
-            ptr(mt), ptr(p), ptr(ac), _f32(wfd), _f32(scale), S, C, cs,
-            n_blocks, *outs)
-    elif tiled:
-        ham = V > 0
-        rc = _lib().stream_sweep_tiled(
-            ptr(ks), ptr(kt), vp(bs if ham else None),
-            vp(bt if ham else None), vp(wt if ham else None),
-            vp(na if ham else None),
-            vp(nb if ham else None), ptr(ms), ptr(mt), ptr(p), ptr(ac),
-            _f32(wed), _f32(wfd), _f32(scale), S, C, V, cs, n_blocks,
-            int(with_stats), *outs)
+    vf = torch.empty((3, S), dtype=f32, device=dev)   # v1, v2, vsel
+    vj = torch.empty((2, S), dtype=i64, device=dev)   # j1, j2
+    if cs > 1:
+        pf = torch.empty((3, cs, S), dtype=f32, device=dev)
+        pj = torch.empty((2, cs, S), dtype=i64, device=dev)
     else:
-        rc = _lib().stream_sweep(
-            ptr(ks), ptr(kt), vp(ws), vp(wt), ptr(ms), ptr(mt), ptr(p),
-            ptr(ac), _f32(wed), _f32(wfd), _f32(scale), S, C, V, W, cs,
-            n_blocks, *outs)
+        pf, pj = vf, vj
+    keep_stats = with_stats or col_side
+    stats = (torch.empty((n_blocks, 8), dtype=torch.float64, device=dev)
+             if keep_stats else None)
+    colkey = (torch.full((C,), _COL_KEY0, dtype=i64, device=dev)
+              if col_side else None)
+    # raw addresses (ctypes takes ints and None for c_void_p; the outputs'
+    # rows by offset) and Python floats (c_float rounds them to float32, as
+    # the plain version's float32 tensors do): no object a pointer
+    ad = lambda t: None if t is None else t.data_ptr()
+    fb, jb = vf.data_ptr(), vj.data_ptr()
+    pfb, pjb = pf.data_ptr(), pj.data_ptr()
+    rc = _lib().stream_sweep_tiled(
+        lane, ad(ks), ad(target.kt), ad(bs),
+        ad(target.rows if lane == 1 else None), ad(target.wt), ad(na),
+        ad(target.nb), ad(fs), ad(target.rows if lane == 2 else None), D, F,
+        ad(ms), ad(target.mt), ad(p), ad(ac), float(wed), float(wfd),
+        float(scale), S, C, V, cs, n_blocks, int(with_stats),
+        fb, jb, fb + 4 * S, jb + 8 * S, fb + 8 * S,
+        pfb, pjb, pfb + 4 * cs * S, pjb + 8 * cs * S, pfb + 8 * cs * S,
+        ad(stats), ad(colkey), torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "stream_sweep launch")
-    name = ("stream_sweep_mult" if mult else "stream_sweep_none"
-            if V == 0 else "stream_sweep")
+    name = ("stream_sweep_mult" if lane == 2 else "stream_sweep_none"
+            if lane == 0 else "stream_sweep")
     name = name + "_col" if col_side else name
     count_launch(name)
     count_launch(f"{name}@{S}")
     cmin = crow = None
     if col_side:
-        cmin = (colkey >> 32).to(i32).view(f32)
+        cmin = (colkey >> 32).to(torch.int32).view(f32)
         crow = colkey & _M32
     if with_stats:
         tot = stats[:, :3].sum(dim=0).to(f32)
         mx = stats[:, 3:7].amax(dim=0).to(f32)
     else:
-        tot = mx = (torch.full((), float("nan"), dtype=f32, device=dev),) * 4
-    return SweepResult(v1, j1.to(torch.int64), v2, j2.to(torch.int64), vsel,
-                       tot[0], tot[1], tot[2], mx[0], mx[1], mx[2], mx[3],
-                       cmin, crow)
+        tot = mx = (target.nan,) * 4
+    return SweepResult(vf[0], vj[0], vf[1], vj[1], vf[2], tot[0], tot[1],
+                       tot[2], mx[0], mx[1], mx[2], mx[3], cmin, crow)
 
 
 def stream_sweep(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed, wfd,
-                 scale, col_side: bool = False,
-                 with_stats: bool = True) -> SweepResult:
+                 scale, col_side: bool = False, with_stats: bool = True,
+                 target: Optional[SweepTarget] = None) -> SweepResult:
     """One matrix-free sweep: per-row top-2 of (b - p), vsel at ``acol``
     and the CD statistics.  kp_s [S, 3] / kp_t [C, 3] float32, centred by
     a common offset; ``prices`` [C]; ``acol`` [S] previous column, SINK or
@@ -527,8 +595,11 @@ def stream_sweep(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed, wfd,
     lane with k in ``wfd``, :class:`NoFeatures` the none lane; any other
     type raises.  ``col_side`` adds the per-column least CD and its lowest
     row.  ``with_stats=False`` (the bidding sweeps, which read the top-2
-    only) skips the statistics and returns them as NaN.  CUDA tensors run
-    the kernel, CPU tensors the plain version."""
+    only) skips the statistics and returns them as NaN.  ``target``
+    (:func:`sweep_target` of ``kp_t``, ``feats`` and ``mask_t``) carries
+    what the kernel reads of the target, made once for many sweeps.  CUDA
+    tensors run the kernel, CPU tensors the plain version (which needs no
+    ``target``)."""
     check_features(feats, "stream_sweep")
     if isinstance(feats, NoFeatures) and feats.n_rows != kp_s.shape[0]:
         raise ValueError(f"stream_sweep: NoFeatures of {feats.n_rows} rows "
@@ -536,7 +607,7 @@ def stream_sweep(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed, wfd,
     args = (kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed, wfd, scale)
     kw = dict(col_side=col_side, with_stats=with_stats)
     if require_device(kp_s, "stream_sweep") == "cuda":
-        return stream_sweep_cuda(*args, **kw)
+        return stream_sweep_cuda(*args, **kw, target=target)
     return stream_sweep_plain(*args, **kw)
 
 

@@ -78,7 +78,8 @@ from ghicp_tpu_torch.ops.auction_rounds import (WarmInputs,
                                                 gs_tile_rows,
                                                 warm_kernel_fits)
 from ghicp_tpu_torch.ops.cost_kernel import fused_benefit, mult_cost
-from ghicp_tpu_torch.ops.stream_kernel import stream_selected, stream_sweep
+from ghicp_tpu_torch.ops.stream_kernel import (stream_selected, stream_sweep,
+                                               sweep_target)
 from ghicp_tpu_torch.registration.estimator import estimate
 
 
@@ -341,6 +342,9 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
     # masks, FD, the kernel's scratch), made once here
     warm_in = (WarmInputs(kp_t_c, fd_b, mask_s, mask_t, ts_gs)
                if use_warm_kernel else None)
+    # what every streaming sweep of this run reads of the target, made once
+    stream_tgt = (sweep_target(kp_t_c, stream, mask_t)
+                  if use_stream and dev.type == "cuda" else None)
 
     def full_solve(st, it_eff, wed, wfd, budget, kps_c, p_mid):
         (b, cnt, s1, s2, _cm, ed_max_f, b_max, v1_mid,
@@ -445,7 +449,8 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
             price_uncertainty=st.price_unc, acol0=st.acol,
             pen_prev=st.pen_prev, carry=st.scarry if fast else None,
             stats_free=sf and fast, open_cap=config.stream_open_cap,
-            compact_extra_sweeps=config.stream_compact_budget)
+            compact_extra_sweeps=config.stream_compact_budget,
+            target=stream_tgt)
 
     zero_p = torch.zeros((T,), dtype=torch.float32, device=dev)
     no_acol = torch.full((S,), -1, dtype=torch.int64, device=dev)
@@ -457,7 +462,8 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
         at the column minimum (the sweep's column side).  Returns (match,
         fsel, cd_sel, penalty, ed_max)."""
         sw = stream_sweep(kps_c, kp_t_c, stream, mask_s, mask_t, zero_p,
-                          no_acol, wed, wfd, scale, col_side=nnr)
+                          no_acol, wed, wfd, scale, col_side=nnr,
+                          target=stream_tgt)
         n_valid = torch.clamp(sw.cnt, min=1.0)
         mean = sw.cd_sum / n_valid
         std = torch.sqrt(torch.clamp(sw.cd_sumsq / n_valid - mean * mean,

@@ -64,11 +64,24 @@ def test_compare_phase_at_small_size(monkeypatch):
             assert r["bound_by"] in ("bytes", "operations")
             continue
         # K3-mult at this size: the 132 blocks' FD factor tables outweigh
-        # the FD's bytes, so operations bound it
+        # the FD's bytes, so operations bound it; K5-mult's pairs count
+        # __fsqrt_rn, expf and logf by their SASS instructions
         assert r["bound_by"] == ("operations" if r["name"] in (
             "nms_exact", "stream_sweep", "stream_sweep_col",
             "stream_sweep_none", "stream_sweep_none_col",
+            "stream_sweep_mult", "stream_sweep_mult_col",
             "auction_warm_fused_mult") else "bytes")
+        if r["name"] in ("stream_sweep_mult", "stream_sweep_col",
+                         "stream_sweep_mult_col"):
+            # each case timed as a call and as the kernel alone
+            assert r["cases"] and all(
+                c["ms"] > 0 and c["kernel_ms"] > 0 and c["bound_ms"] > 0
+                for c in r["cases"])
+        if r["name"] == "stream_sweep_mult":
+            assert [c["D"] for c in r["cases"]] == [33, 135, 33, 33]
+            assert sorted(r["ms_by_rows"]) == [128, 384, 512]
+            assert min(r["ms_no_stats"], r["compact_ms"],
+                       r["kernel_ms"]) > 0
         if r["name"].startswith("auction_warm_fused"):
             # the call and the kernel alone, at the engine budget and 16
             assert min(r["kernel_ms"], r["budget16_ms"],
@@ -257,3 +270,62 @@ def test_k3_traces_logs_the_engine_launches(capsys):
         base + exp_log, 0)
     assert chip_smoke.k3_ops(20480, 20480, 64, True, False, 132) == (
         base + exp_log, 0)
+
+
+def test_k5_mult_bound_counts_what_desc_kernel_runs():
+    """K5-mult's operations a valid pair count the square root the kernel
+    calls (stream.cu's sqrt_rn, whose source the SASS probe compiles),
+    expf and logf by their SASS instructions beside the 14 others; its
+    bytes count the ceil(D / 8) 16-byte chunks the kernel reads a row."""
+    src = chip_smoke.sqrt_rn_source()
+    assert src.startswith("__device__ __forceinline__ float sqrt_rn(")
+    assert src.rstrip().endswith("}") and "rsqrt.approx" in src
+    assert "sqrt_rn(x[threadIdx.x])" in chip_smoke.SASS_PROBE
+    c = chip_smoke.SASS_COUNTS
+    base = chip_smoke.K5_MULT_PAIR_OPS + c["sqrt_rn"] + c["exp"] + c["log"]
+    assert chip_smoke.K5_MULT_PAIR_OPS == 14
+    assert chip_smoke.k5_mult_ops(False) == base
+    assert chip_smoke.k5_mult_ops(True) == base + chip_smoke.K5_STATS_OPS
+    assert chip_smoke.k5_mult_ops(True, True) == (
+        base + chip_smoke.K5_STATS_OPS + chip_smoke.K5_COL_OPS)
+    # no valid pair: the bytes alone, D = 33 read as 5 chunks and D = 135
+    # as 17, not a row padded to 128 or 256 values
+    for D, chunks in ((33, 5), (135, 17)):
+        ms, by, _ = chip_smoke.k5_mult_bound(1000, 3000, 0.0, D, False)
+        n = 4000 * (16 + 16 * chunks) + 1000 * 37 + 3000 * 5
+        assert by == "bytes"
+        assert ms == pytest.approx(n / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+def test_register_spread_repeats_without_counting(monkeypatch, capsys):
+    """register_spread times ENGINE_REPEATS registrations (the first one
+    given), logs each register stage and its spread, and leaves the launch
+    counts as the first registration left them."""
+    import types
+
+    from ghicp_tpu_torch.ops import LAUNCHES, count_launch
+    from ghicp_tpu_torch.registration import pipeline
+
+    def fake(reg_s):
+        return types.SimpleNamespace(
+            timings={"register": reg_s},
+            result=types.SimpleNamespace(iterations=1))
+
+    calls = []
+
+    def register_pair(s, t, c):
+        calls.append((s, t, c))
+        count_launch("stream_sweep_mult")
+        return fake(0.02 + 0.001 * len(calls))
+
+    monkeypatch.setattr(pipeline, "register_pair", register_pair)
+    before = dict(LAUNCHES)
+    secs = chip_smoke.register_spread("engine", "s", "t", "c", fake(0.03))
+    assert LAUNCHES == before
+    assert len(calls) == chip_smoke.ENGINE_REPEATS - 1
+    assert all(x == ("s", "t", "c") for x in calls)
+    assert secs[0] == 0.03 and len(secs) == chip_smoke.ENGINE_REPEATS
+    out = capsys.readouterr().out
+    assert (f"engine register stage over {chip_smoke.ENGINE_REPEATS} "
+            "registrations") in out
+    assert f"spread {min(secs):.5f}-{max(secs):.5f} s" in out

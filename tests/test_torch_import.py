@@ -50,3 +50,23 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ghicp_register_chunked(z, m, z, m, np.zeros((128, 128), np.float32),
                                1.0, GHICPConfig())
+
+
+def test_feature_interop_defaults_to_the_card(monkeypatch):
+    """``interop``'s feature functions run on the card unless the caller
+    asks for the CPU, as every entry point does."""
+    from ghicp_tpu_torch.interop import (desc_features_from_numpy,
+                                         stream_features_from_numpy)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bits = np.zeros((1, 4, 448), np.float32)
+    rows = np.zeros((4, 128), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stream_features_from_numpy(bits, bits[0], np.zeros((1, 4)),
+                                   np.zeros(4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        desc_features_from_numpy(rows, rows, 33)
+    f = desc_features_from_numpy(rows, rows, 33, device="cpu")
+    assert f.fs.device.type == "cpu" and f.fs.dtype == torch.bfloat16
+    g = stream_features_from_numpy(bits, bits[0], np.zeros((1, 4)),
+                                   np.zeros(4), device="cpu")
+    assert g.words_s.device.type == "cpu"

@@ -17,7 +17,8 @@ torch.set_num_threads(1)
 
 def _feats(jf):
     return stream_features_from_numpy(np.asarray(jf.fs), np.asarray(jf.ft),
-                                      np.asarray(jf.na), np.asarray(jf.nb))
+                                      np.asarray(jf.na), np.asarray(jf.nb),
+                                      device="cpu")
 
 
 def _t(x):

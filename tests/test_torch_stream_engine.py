@@ -72,7 +72,8 @@ def test_one_iteration_from_identical_state(jax_states, start_it):
     assert bool(st.scarry.ok) == (start_it > 0)
     cfg = config_from_dict(dataclasses.asdict(BASE))
     feats = stream_features_from_numpy(np.asarray(jf.fs), np.asarray(jf.ft),
-                                       np.asarray(jf.na), np.asarray(jf.nb))
+                                       np.asarray(jf.na), np.asarray(jf.nb),
+                                       device="cpu")
     body_t = make_body(torch.from_numpy(tgt), torch.from_numpy(ms),
                        torch.from_numpy(mt), None, 40.0, cfg, feats)
     got = body_t(state_from_numpy(_to_numpy(st), "cpu",
@@ -172,7 +173,8 @@ def test_identity_start_trajectory_matches_jax():
                               jnp.asarray(tgt), jnp.asarray(m), None,
                               jnp.float32(40.0), cfg, stream=jf)
     feats = stream_features_from_numpy(np.asarray(jf.fs), np.asarray(jf.ft),
-                                       np.asarray(jf.na), np.asarray(jf.nb))
+                                       np.asarray(jf.na), np.asarray(jf.nb),
+                                       device="cpu")
     got = ghicp_register_chunked(src, m, tgt, m, None, 40.0,
                                  config_from_dict(dataclasses.asdict(cfg)),
                                  device="cpu", stream=feats)
@@ -217,7 +219,8 @@ def test_mult_blend_streaming_engine_matches_jax(standardize):
                               jnp.asarray(tgt), jnp.asarray(mt), None,
                               jnp.float32(40.0), cfg, stream=jf)
     cfg_t = config_from_dict(dataclasses.asdict(cfg))
-    feats = desc_features_from_numpy(np.asarray(jf.fs), np.asarray(jf.ft), D)
+    feats = desc_features_from_numpy(np.asarray(jf.fs), np.asarray(jf.ft), D,
+                                     device="cpu")
     got = ghicp_register_chunked(src, m, tgt, mt, None, 40.0, cfg_t,
                                  device="cpu", stream=feats)
     assert int(got.metrics.fast.sum()) == 0
@@ -273,7 +276,7 @@ def test_streaming_nn_nnr_none_match_jax(feature, corr, monkeypatch):
                        n_bits=441)
         feats = stream_features_from_numpy(
             np.asarray(jf.fs), np.asarray(jf.ft), np.asarray(jf.na),
-            np.asarray(jf.nb))
+            np.asarray(jf.nb), device="cpu")
     else:
         # the JAX pipeline's none factors: zero bits, FD identically 0
         jf = StreamFeatures(fs=jnp.zeros((1, S, 128), jnp.bfloat16),

@@ -51,7 +51,7 @@ def problem():
                    n_bits=n_bits)
     tf = stream_features_from_numpy(np.asarray(jf.fs), np.asarray(jf.ft),
                                     np.asarray(jf.na), np.asarray(jf.nb),
-                                    n_bits)
+                                    n_bits, device="cpu")
     return dict(kp_s=kp_s, kp_t=kp_t, bits_s=bits_s, bits_t=bits_t, ms=ms,
                 mt=mt, prices=prices, acol=acol, jf=jf, tf=tf,
                 n_bits=n_bits)
@@ -159,9 +159,10 @@ def col_problem():
     lanes = {
         "hamming": (jb, stream_features_from_numpy(
             np.asarray(jb.fs), np.asarray(jb.ft), np.asarray(jb.na),
-            np.asarray(jb.nb)), WED, WFD, {}),
+            np.asarray(jb.nb), device="cpu"), WED, WFD, {}),
         "similarity": (jd, desc_features_from_numpy(
-            np.asarray(jd.fs), np.asarray(jd.ft), 33), 1.0, K_MULT,
+            np.asarray(jd.fs), np.asarray(jd.ft), 33, device="cpu"), 1.0,
+            K_MULT,
             dict(mult_blend=True)),
         "none": (jb, NoFeatures(S), WED, 0.0, dict(no_features=True)),
     }
@@ -350,7 +351,8 @@ def desc_problem(problem):
                        standardize=std)
         out[name] = dict(desc_s=desc_s, desc_t=desc_t, jf=jf, std=std, D=D,
                          tf=desc_features_from_numpy(np.asarray(jf.fs),
-                                                     np.asarray(jf.ft), D))
+                                                     np.asarray(jf.ft), D,
+                                                     device="cpu"))
     return out
 
 

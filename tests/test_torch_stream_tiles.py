@@ -17,10 +17,11 @@ from ghicp_tpu.ops.stream_kernel import make_stream_features as jax_feats
 from ghicp_tpu_torch.features.bsc import pack_bits
 from ghicp_tpu_torch.matching.stream_auction import sweep_moments
 from ghicp_tpu_torch.ops.stream_kernel import (
-    BIT_ROW, HAM_TC, NONE_RT, NONE_TC, NEG, RT, STAT_FIELDS, NoFeatures,
-    _merge_top2, _top2_init, column_splits, lex_merge_top2,
-    make_stream_features, popcount32, stream_selected, stream_sweep,
-    stream_sweep_plain, subset_rows, unpack_bits8)
+    BIT_ROW, DESC_RT, HAM_TC, NONE_RT, NONE_TC, NEG, RT, STAT_FIELDS,
+    NoFeatures, _merge_top2, _top2_init, check_target, column_splits,
+    desc_tile_cols, lex_merge_top2, make_desc_features, make_stream_features,
+    popcount32, stream_selected, stream_sweep, stream_sweep_plain,
+    subset_rows, sweep_target, unpack_bits8)
 
 torch.set_num_threads(1)
 N_BITS = 441
@@ -104,15 +105,25 @@ def _sweep_args(rng, S, C, feats, wed=0.7, wfd=0.3):
     return (kp_s, kp_t, feats, ms, mt, prices, t(acol), wed, wfd, 0.08)
 
 
-@pytest.mark.parametrize("lane", ["bsc", "none"])
+def _desc_feats(rng, S, C, D=33):
+    t = torch.from_numpy
+    desc_t = rng.gamma(2.0, 5.0, (C, D)).astype(np.float32)
+    desc_s = desc_t[rng.integers(0, C, S)] + rng.normal(
+        0, 3.0, (S, D)).astype(np.float32)
+    return make_desc_features(t(desc_s), t(desc_t))
+
+
+@pytest.mark.parametrize("lane", ["bsc", "none", "similarity"])
 def test_statistics_free_sweep(lane):
     """``with_stats=False``: the same top-2 and vsel, NaN statistics, and a
     caller that reads them raises."""
     rng = np.random.default_rng(5)
     S, C = 150, 200
-    feats = _feats(*_bits(rng, 4, S, C)) if lane == "bsc" else NoFeatures(S)
-    a = _sweep_args(rng, S, C, feats, *((0.7, 0.3) if lane == "bsc"
-                                         else (1.0, 0.0)))
+    feats, w = {"bsc": lambda: (_feats(*_bits(rng, 4, S, C)), (0.7, 0.3)),
+                "none": lambda: (NoFeatures(S), (1.0, 0.0)),
+                "similarity": lambda: (_desc_feats(rng, S, C),
+                                       (1.0, 1.0 / 3.0))}[lane]()
+    a = _sweep_args(rng, S, C, feats, *w)
     full = stream_sweep_plain(*a, tc=64)
     bare = stream_sweep(*a, with_stats=False)
     for k in ("v1", "j1", "v2", "j2", "vsel"):
@@ -127,13 +138,39 @@ def test_statistics_free_sweep(lane):
         sweep_moments(bare)
 
 
-def test_solve_reads_statistics_of_sweep_zero_only(monkeypatch):
-    """The streaming solve asks for the statistics on its sweep 0 and for
-    none on its bidding sweeps (full and compacted)."""
+@pytest.mark.parametrize("lane", ["bsc", "none", "similarity"])
+def test_sweep_target_checks_what_it_was_made_from(lane):
+    """A ``SweepTarget`` serves only the columns, factors and mask it was
+    made from, unchanged: other tensors of the same shapes, or an in-place
+    write to its own, raise (the kernel would read stale target rows)."""
+    rng = np.random.default_rng(13)
+    S, C = 96, 128
+    make = {"bsc": lambda: _feats(*_bits(rng, 2, S, C)),
+            "none": lambda: NoFeatures(S),
+            "similarity": lambda: _desc_feats(rng, S, C)}[lane]
+    feats = make()
+    a = _sweep_args(rng, S, C, feats)
+    kp_t, mask_t = a[1], a[4]
+    tg = sweep_target(kp_t, feats, mask_t)
+    check_target(tg, kp_t, feats, mask_t)
+    check_target(tg, kp_t, subset_rows(feats, torch.arange(0, S, 2)),
+                 mask_t)
+    with pytest.raises(ValueError, match="target was made from other"):
+        check_target(tg, kp_t.clone(), feats, mask_t)
+    with pytest.raises(ValueError, match="target was made from other"):
+        check_target(tg, kp_t, feats, mask_t.clone())
+    if lane != "none":
+        with pytest.raises(ValueError, match="target was made from other"):
+            check_target(tg, kp_t, make(), mask_t)
+    mask_t[0] = ~mask_t[0]
+    with pytest.raises(ValueError, match="target was made from other"):
+        check_target(tg, kp_t, feats, mask_t)
+
+
+def _spy_solve(monkeypatch, rng, S, C, feats, wed, wfd):
+    """A streaming solve with its sweeps spied on: (rows, with_stats) of
+    each sweep in order."""
     from ghicp_tpu_torch.matching import stream_auction as sa
-    rng = np.random.default_rng(9)
-    S, C = 192, 256
-    feats = _feats(*_bits(rng, 4, S, C))
     a = _sweep_args(rng, S, C, feats)
     seen = []
 
@@ -143,11 +180,33 @@ def test_solve_reads_statistics_of_sweep_zero_only(monkeypatch):
 
     monkeypatch.setattr(sa, "stream_sweep", spy)
     sa.stream_solve(a[0], a[1], feats, torch.ones(S, dtype=torch.bool),
-                    torch.ones(C, dtype=torch.bool), 0.6, 0.4, 0.1,
+                    torch.ones(C, dtype=torch.bool), wed, wfd, 0.1,
                     lambda m, s: m - s, eps_final=0.01, rel_eps=1.0 / 64,
                     max_sweeps=64, p0=torch.zeros(C), price_uncertainty=3e38,
                     acol0=torch.full((S,), -1, dtype=torch.int64),
                     pen_prev=0.0, open_cap=64)
+    return seen
+
+
+def test_solve_reads_statistics_of_sweep_zero_only(monkeypatch):
+    """The streaming solve asks for the statistics on its sweep 0 and for
+    none on its bidding sweeps (full and compacted)."""
+    rng = np.random.default_rng(9)
+    S, C = 192, 256
+    seen = _spy_solve(monkeypatch, rng, S, C, _feats(*_bits(rng, 4, S, C)),
+                      0.6, 0.4)
+    assert seen[0] == (S, True)
+    assert len(seen) > 2 and all(not ws for _, ws in seen[1:])
+    assert any(rows == RT for rows, _ in seen[1:])
+
+
+def test_solve_reads_statistics_of_sweep_zero_only_on_fpfh(monkeypatch):
+    """The same on the similarity (FPFH) lane: its bidding sweeps, full and
+    compacted, ask for no statistics."""
+    rng = np.random.default_rng(19)
+    S, C = 192, 256
+    seen = _spy_solve(monkeypatch, rng, S, C, _desc_feats(rng, S, C), 1.0,
+                      1.0 / 3.0)
     assert seen[0] == (S, True)
     assert len(seen) > 2 and all(not ws for _, ws in seen[1:])
     assert any(rows == RT for rows, _ in seen[1:])
@@ -219,7 +278,10 @@ def test_kernel_arithmetic_identities():
 @pytest.mark.parametrize("S,C,rows,cols", [
     (51200, 51200, RT, HAM_TC), (2048, 51200, RT, HAM_TC),
     (51200, 51200, NONE_RT, NONE_TC), (2048, 51200, NONE_RT, NONE_TC),
-    (8192, 8192, RT, HAM_TC), (100, 777, RT, HAM_TC), (1, 1, RT, HAM_TC)])
+    (8192, 8192, RT, HAM_TC), (100, 777, RT, HAM_TC), (1, 1, RT, HAM_TC),
+    (51200, 51200, DESC_RT, desc_tile_cols(33)),
+    (2048, 51200, DESC_RT, desc_tile_cols(33)),
+    (8192, 51200, DESC_RT, desc_tile_cols(135))])
 def test_column_splits_leave_no_range_empty(S, C, rows, cols):
     n_ct = -(-C // cols)
     for per_sm in (2, 16):
@@ -394,3 +456,113 @@ def test_none_col_plain_is_the_streaming_nnr_sweep():
     np.testing.assert_array_equal(got.cmin.numpy(), want_min)
     np.testing.assert_array_equal(got.crow.numpy(), want_row)
     assert np.isfinite(float(got.cd_sum)) and float(got.cnt) == m.sum()
+
+
+# ---------------------------------------------------------------------------
+# K5-col: a model of ham_kernel<V, true, true>'s column side
+# ---------------------------------------------------------------------------
+
+def _ham_col_model(args, splits, rng):
+    """ham_kernel's column side step by step, in the wgmma m64nN
+    accumulator layout: blocks of RT rows, column splits of whole tiles of
+    HAM_TC columns; warpgroup w finishes columns 32 w .. 32 w + 31 of a
+    tile, its warp q rows 16 q .. 16 q + 15, where lane (g, t4) holds rows
+    16 q + g and + 8 and columns 8 k + 2 t4 + e.  Per column, a lane's
+    least CD over its two rows (a masked row's CD NaN, skipped as fminf
+    does), the 8 lanes of equal t4 the least bits and the lowest row at
+    them, into the block's slot of the column unless the warp's least does
+    not reach the key staged with the tile (the current key or an older
+    one), then the slot into the global array after the tile.  Blocks,
+    splits, warpgroups and warps run in shuffled orders.  Returns (cmin,
+    crow, columns skipped by the vote)."""
+    from ghicp_tpu_torch.ops.cost_kernel import _factors, factor_cost
+    from ghicp_tpu_torch.ops.stream_kernel import _COL_KEY0, NO_ROW
+    kp_s, kp_t, feats, ms, mt, prices, _, wed, wfd, scale = args
+    S, C = kp_s.shape[0], kp_t.shape[0]
+    # FD as the tensor cores sum it: integers over the unpacked bits
+    dot = torch.einsum("vsk,ck->vsc", feats.bits_s.to(torch.int32),
+                       feats.bits_t.to(torch.int32))
+    fd = (feats.na.to(torch.int32)[:, :, None]
+          + feats.nb.to(torch.int32)[None, None] - 2 * dot).amin(dim=0)
+    cd_all = factor_cost(_factors(kp_s), _factors(kp_t), fd.to(torch.float32),
+                         wed, wfd, scale)[1].numpy()
+    cd_all = np.where(ms.numpy()[:, None], cd_all, np.float32(np.nan))
+    n_rb, n_ct = -(-S // RT), -(-C // HAM_TC)
+    tps = -(-n_ct // splits)
+    colkey = np.full(C, _COL_KEY0, np.uint64)
+    skipped = 0
+    g, ri = np.arange(8)[:, None], np.arange(2)[None, :]
+    for b, y in rng.permutation([(b, y) for b in range(n_rb)
+                                 for y in range(splits)]):
+        older = colkey.copy()
+        for tile in range(y * tps, min(n_ct, (y + 1) * tps)):
+            staged = (older if rng.random() < 0.5 else colkey) >> \
+                np.uint64(32)
+            slot = np.full(HAM_TC, 2**64 - 1, np.uint64)
+            for w in rng.permutation(2):
+                for q in rng.permutation(4):
+                    rows = b * RT + 16 * q + g + 8 * ri      # [g, ri]
+                    rin = rows < S
+                    for k in range(4):
+                        for t4 in range(4):
+                            for e in range(2):
+                                qc = 32 * w + 8 * k + 2 * t4 + e
+                                col = tile * HAM_TC + qc
+                                if col >= C or not mt[col]:
+                                    continue
+                                cd = np.where(rin, cd_all[np.minimum(
+                                    rows, S - 1), col], np.float32(np.nan))
+                                lane_min = np.fmin.reduce(cd, axis=1)
+                                bits = np.where(
+                                    lane_min == lane_min,
+                                    (lane_min + np.float32(0.0)).astype(
+                                        np.float32).view(np.uint32),
+                                    _NO_KEY).astype(np.uint64)
+                                wm = bits.min()
+                                if wm > staged[col]:        # the vote
+                                    skipped += 1
+                                    continue
+                                mf = np.uint32(wm).view(np.float32)
+                                rr = np.where(cd == mf, rows, _NO_KEY).min()
+                                key = (wm << np.uint64(32)) | np.uint64(rr)
+                                slot[qc] = min(slot[qc], key)
+            cols = tile * HAM_TC + np.arange(HAM_TC)
+            ok = (cols < C) & (slot != np.uint64(2**64 - 1))
+            colkey[cols[ok]] = np.minimum(colkey[cols[ok]], slot[ok])
+    cmin = (colkey >> np.uint64(32)).astype(np.uint32).view(np.float32)
+    crow = (colkey & np.uint64(_M32_NP)).astype(np.int64)
+    assert ((crow == NO_ROW) == (cmin == np.float32(3e38))).all()
+    return cmin, crow, skipped
+
+
+@pytest.mark.parametrize("V,S,C,splits,tie_block", [
+    (4, 200, 300, 1, False), (2, 256, 200, 3, True), (1, 150, 140, 2, True)])
+def test_ham_col_model_matches_plain(V, S, C, splits, tie_block):
+    """The Hamming lane's column side in ham_kernel's accumulator layout
+    (two rows a lane, 8 lanes a column, four warps, two warpgroups; keys
+    folded into a block slot, then the global array, in shuffled orders,
+    after the staged-key vote) gives the plain cmin / crow bit for bit,
+    with masked rows and columns, and on a block of duplicated row pairs
+    the lower row of each tie."""
+    rng = np.random.default_rng(V * 100 + S + splits)
+    bs, bt = _bits(rng, V, S, C)
+    if tie_block:
+        bs[:, 1::2] = bs[:, 0::2][:, :S // 2]
+    feats = _feats(bs, bt)
+    a = list(_sweep_args(rng, S, C, feats))
+    if tie_block:
+        kp_s, ms = a[0].clone(), a[3].clone()
+        kp_s[1::2] = kp_s[0::2][:S // 2]
+        ms[1::2] = ms[0::2][:S // 2]
+        a[0], a[3] = kp_s, ms
+    a = tuple(a)
+    want = stream_sweep_plain(*a, tc=96, col_side=True)
+    cmin, crow, skipped = _ham_col_model(a, splits, rng)
+    np.testing.assert_array_equal(cmin.view(np.uint32),
+                                  want.cmin.numpy().view(np.uint32))
+    np.testing.assert_array_equal(crow, want.crow.numpy())
+    valid = crow < 2**30
+    assert valid.sum() > 0.5 * C
+    if tie_block:
+        assert (crow[valid] % 2 == 0).all()
+    assert skipped > 0
