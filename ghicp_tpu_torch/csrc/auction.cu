@@ -15,33 +15,43 @@
 // lane, float32: each kernel is a template on its element type T; either
 // way the arithmetic is float32.
 //
-// Bound on this card: memory for K2 (a sweep reads its active row tiles of
-// the stored benefits); for K3 the float work of rebuilding every benefit
-// (sqrt, and expf / logf with ``mult``) against one read of the FD (bf16:
-// 134 MB at 8192^2, 40 us at 3.35 TB/s).
+// Bound on this card: memory for K2 (a sweep reads the open rows of its
+// active tiles of the stored benefits); for K3 the float work of
+// rebuilding every benefit (sqrt, and expf / logf with ``mult``) against
+// one read of the FD (bf16: 134 MB at 8192^2, 40 us at 3.35 TB/s).
 //
-// K2 design.  One persistent cooperative launch (grid = co-resident blocks,
-// cg::grid_group::sync between stages) keeps the whole phase on the card:
-// prices, owners, open/sunk flags and the per-column bid slots stay in
-// global memory (all of it fits in L2).  The sequential Gauss-Seidel tile
-// order of the TPU kernel is kept exactly: the active-tile list is rebuilt
-// at each sweep start (every block computes it from the open flags), and
-// for each listed tile
-//   phase A: one block per open row computes the row's top-2 of (b - p)
-//            (lowest column on argmax ties, as jnp.argmax) and posts its
-//            bid to column j1 with a 64-bit atomicMax of
-//            (orderable(delta) << 32 | (0xFFFFFFFF - row)): the highest
-//            delta wins, ties go to the lowest row id (the TPU kernel's
-//            first-max-lane rule) — no 14-bit row packing, so S is not
-//            capped at 16384;
-//   phase B: after a grid sync, each bidder reads its column's slot; the
-//            winner takes the column at p + delta, reopens the evicted
-//            owner and clears the slot.  Sink decisions made in phase A are
-//            applied here too, so no open flag changes while another block
-//            may still be building the active list.
-// K2 and K3 share only top2.cuh.
+// The Gauss-Seidel sweeps (gs_sweeps, both kernels; one cooperative launch,
+// one 512-thread block an SM).  Every block keeps a replica of the prices,
+// the owners and the open flags.  For each active tile (the tiles with
+// open rows at the sweep start, in order) the open rows are split over the
+// blocks in column parts (up to 16 parts a row when the tile has few open
+// rows); each part's top-2 of (b - p) goes to a global slot; after ONE grid
+// sync every block merges the parts, applies the tile's bid rule (the
+// highest delta wins a column, ties to the lowest row: the TPU kernel's
+// first-max-lane rule) and updates its own replica identically.  No
+// atomics, no bid-slot clearing and no second barrier a tile; the active
+// list is counted from the replica.  (The part slots alternate between two
+// buffers: a block may scan tile k + 1 while another still reads tile k's
+// parts.)  The resolve finds each bid column's highest key in a hash table
+// once a tile has more than TAB_MIN bidders (a cold sweep's full tiles),
+// by comparing all pairs below that.  K2's solve may end in the solo
+// endgame (SOLO_UNITS): block 0 alone, whole-row scans, no grid sync.
+// The replica lives in shared memory where it fits (GsSmem form 0: 8 bytes
+// a column and one a row, to about 23,500 slots); past that (K2 only) the
+// owners move to a global slice a block (form 1: to about 42,000 slots)
+// and then the prices and open flags too (form 2), read through L1, so the
+// shape stops at the scratch's size, not at the card's shared memory.  A
+// part scan is a functor: K3 rebuilds each benefit from the FD and the
+// factors (FdScan), K2 reads the stored matrix (MatScan), two parts at a
+// time where a block has them.
 //
-// K3 design (one cooperative launch, one 512-thread block an SM):
+// K2 (gs_phase_kernel<T, FORM>): the replica is loaded from the start
+// state, the sweeps run from sweep 0 at eps * sched[r] (eps and sink are
+// device scalars), then the rows left open are completed greedily at the
+// final prices (a block-wide scan a row: best column or the sink) and the
+// replica is written out.
+//
+// K3 design (warm_fused_kernel<T, MULT, LUT>):
 //   sweep 0  each block owns bands of 64 rows, a warp 4 of them.  Chunks of
 //            1024 columns of the column factors (x, y, z, |t|^2, mask) and
 //            the bidding-start prices are staged in shared memory with
@@ -51,27 +61,18 @@
 //            registers and a warp merges them by shuffles: no block barrier
 //            a row.  The top-2 merge (t2_merge) is lexicographic (highest
 //            value, then lowest column) and vsel / bmax are maxima, so any
-//            split gives the same bits as the plain version.
+//            split gives the same bits as the plain version.  (K1's
+//            fused_benefit, csrc/cost.cu, walks the same bands with the
+//            helpers of sweep.cuh.)
 //   round 0  the keep test, the column release and the round-0 Jacobi bids
 //            (64-bit atomicMax slots) between grid syncs, as the TPU kernel.
-//   sweeps   every block keeps a replica of the prices, the owners and the
-//            open flags in shared memory.  For each active tile (the tiles
-//            with open rows at the sweep start, in order) the open rows are
-//            split over the blocks in column parts (up to 16 parts a row
-//            when the tile has few open rows); each part's top-2 of (b - p)
-//            goes to a global slot; after ONE grid sync every block merges
-//            the parts, applies the tile's bid rule (the highest delta wins
-//            a column, ties to the lowest row) and updates its own replica
-//            identically.  No atomics, no bid-slot clearing and no second
-//            barrier a tile; the active list is counted from the replica.
-//            (The part slots alternate between two buffers: a block may
-//            scan tile k + 1 while another still reads tile k's parts.)
+//   sweeps   gs_sweeps from sweep 1, the replica in shared memory.
 //   end      greedy completion of the rows left open from the parked hints,
 //            then the replica is written out.
-// The scratch (bid slots, hints, part slots, the benefit-max key, a counter)
-// comes from the wrapper, made once an engine run; the kernel leaves the bid
-// slots and the counter at zero and the max key at orderable(-3e38), as it
-// found them.  sink and the penalty step reach it as device scalars.
+// The scratch (bid slots, hints, part slots, the benefit-max key, a counter,
+// K2's global replicas) comes from the wrapper, made once an engine run;
+// the kernels leave the bid slots and the counter at zero and the max key
+// at orderable(-3e38), as they found them.
 //
 // Everything that must match the plain PyTorch version bit for bit is
 // computed with explicitly rounded intrinsics (no FMA contraction; expf and
@@ -86,217 +87,579 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sweep.cuh"
 #include "top2.cuh"
 
 namespace cg = cooperative_groups;
 
 #define MAX_TILES 1024
 
-constexpr int NT = 256;           // K2: threads per block
-constexpr int NWARP = NT / 32;
+constexpr int GMAX = 16;             // most column parts of one GS row
+constexpr int TRACE_SWEEPS = 30;     // trace slots for active tiles a sweep
+// A tile's (row, part) slots number at most max(ts, blocks) <= MAX_ITEMS.
+constexpr int MAX_ITEMS = 1024;
+// The resolve of a tile with more than TAB_MIN bidders finds each column's
+// highest key in a hash table of TAB slots (in the part slots' shared
+// memory, free once the parts are merged); fewer compare all pairs.
+constexpr int TAB = 1024;
+constexpr int TAB_MIN = 32;
+// K2's endgame: from the sweep whose open rows would cost block 0 at most
+// SOLO_UNITS 8-column units of scan an active tile (two rows of 8192
+// columns), block 0 goes on alone: whole-row scans and no grid sync.  A
+// grid step costs a light tile ~2 us whatever its rows; a block's
+// whole-row scan grows with the row (at 24,576 columns one row costs
+// about a step).
+constexpr int SOLO_UNITS = 2048;
+static_assert(12 * TAB <= 12 * MAX_ITEMS, "the table fits the part slots");
 
-struct Params {
-  int S, C, ts, n_tiles, max_rounds, complete;
-  float sink, eps;                // eps: the phase epsilon
-  const float* sched;             // [max_rounds] escalation boost per sweep
-  const void* mat;                // benefits b [S, C] (bf16 or float32: T)
-  // state, updated in place
-  float* p;
-  int* owner;
-  int* sunk;
-  int* open;
-  int* gcol;
-  int* rounds;
-  // scratch
-  unsigned long long* bid;        // [C], zero on entry, zero on exit
-  int* rowdec;                    // [ts]: -2 none, -1 sink, else bid column
+// ===========================================================================
+// The Gauss-Seidel sweeps (K2 and K3)
+// ===========================================================================
+
+// Shared memory of the Gauss-Seidel sweeps (byte offsets): the replica's
+// part of replica form ``form`` (0: prices, owners and open flags; 1:
+// prices and open flags, the owners in a global slice a block; 2: none,
+// all three in global slices) and the tile scratch from ``key`` on.
+struct GsSmem {
+  int p, own, key, rows, col, cnt, list, t, part, misc, open, total;
+  __host__ __device__ GsSmem(int S, int C, int ts, int n_tiles, int form) {
+    p = 0;
+    own = p + (form <= 1 ? 4 * C : 0);
+    key = own + (form == 0 ? 4 * C : 0);
+    rows = key + 8 * ts;
+    col = rows + 4 * ts;
+    cnt = col + 4 * ts;
+    list = cnt + 4 * n_tiles;
+    t = list + 4 * n_tiles;
+    part = t + 16 * WNWARP;
+    misc = part + 12 * MAX_ITEMS;
+    open = misc + 16;
+    total = open + (form <= 1 ? ((S + 15) & ~15) : 0);
+  }
 };
 
-// Block-wide scan of one row: top-2 of (b - p).  All threads return it.
-template <typename T>
-__device__ Top2 row_scan(const Params& P, int row, const float* pr) {
-  __shared__ Top2 s_t[NWARP];
-  const int C = P.C;
-  Top2 t = t2_empty();
-  const T* rp = static_cast<const T*>(P.mat) + (size_t)row * C;
-  for (int c0 = threadIdx.x * 8; c0 < C; c0 += NT * 8) {
-    float xv[8];
-    load8(rp + c0, xv);
-    float4 pa = __ldcg(reinterpret_cast<const float4*>(pr + c0));
-    float4 pb = __ldcg(reinterpret_cast<const float4*>(pr + c0 + 4));
-    float pv[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
-#pragma unroll
-    for (int q = 0; q < 8; ++q) t2_push(t, __fsub_rn(xv[q], pv[q]), c0 + q);
-  }
+// A block's replica of the prices, owners and open flags (shared memory,
+// or the block's slice of a global scratch array).
+struct Replica {
+  float* p;
+  int* own;
+  unsigned char* open;
+};
+
+// What the sweeps read and write besides the block's replica.
+struct GsArgs {
+  int S, C, ts, n_tiles, max_rounds;
+  const float* sched;   // [max_rounds] escalation boost per sweep
+  float* part;          // [2][ts][GMAX][3] part top-2 slots
+  int* sunk;            // rows taking the sink are set here
+  int* trace;           // [3 + TRACE_SWEEPS]: [2] rows scanned, [3 + k]
+                        // active tiles of the k-th sweep
+};
+
+// The block's merge of every thread's top-2 ``t``; all threads return it.
+__device__ __forceinline__ Top2 block_top2(Top2 t, Top2* s_t) {
   t = t2_warp_merge(t);
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
   if (l == 0) s_t[w] = t;
   __syncthreads();
   Top2 r = s_t[0];
-  for (int k = 1; k < NWARP; ++k) r = t2_merge(r, s_t[k]);
-  __syncthreads();   // s_t is reused by the next row
+  for (int j = 1; j < WNWARP; ++j) r = t2_merge(r, s_t[j]);
+  __syncthreads();   // s_t is reused by the next part
   return r;
 }
 
-// Block-redundant: count open rows and list the tiles that have any.
-__device__ void build_active(const Params& P, int* s_list, int* s_n,
-                             int* s_open) {
-  __shared__ int s_cnt[MAX_TILES];
-  for (int t = threadIdx.x; t < P.n_tiles; t += NT) s_cnt[t] = 0;
-  __syncthreads();
-  for (int i = threadIdx.x; i < P.S; i += NT) {
-    if (__ldcg(P.open + i)) atomicAdd(&s_cnt[i / P.ts], 1);
+// Top-2 of (b - p) of ``row`` over the 8-column units [u0, u1), at the
+// block's replica prices; all threads return the block's merge.
+template <typename Scan>
+__device__ __forceinline__ Top2 part_scan(const Scan& scan, const float* s_p,
+                                          Top2* s_t, int row, int u0,
+                                          int u1) {
+  return block_top2(scan(s_p, row, u0, u1), s_t);
+}
+
+// The block's merges of two sets of per-thread top-2s (``a`` through
+// ``s_a``, ``b`` through ``s_b``) with one pair of barriers.
+__device__ __forceinline__ void block_top2_pair(Top2& a, Top2& b, Top2* s_a,
+                                                Top2* s_b) {
+  a = t2_warp_merge(a);
+  b = t2_warp_merge(b);
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  if (l == 0) {
+    s_a[w] = a;
+    s_b[w] = b;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int n = 0, tot = 0;
-    for (int t = 0; t < P.n_tiles; ++t) {
-      tot += s_cnt[t];
-      if (s_cnt[t] > 0) s_list[n++] = t;
-    }
-    *s_n = n;
-    *s_open = tot;
+  a = s_a[0];
+  b = s_b[0];
+  for (int j = 1; j < WNWARP; ++j) {
+    a = t2_merge(a, s_a[j]);
+    b = t2_merge(b, s_b[j]);
   }
   __syncthreads();
 }
 
-// Gauss-Seidel sweeps over the active tiles, from sweep r0 on.
-template <typename T>
-__device__ int gs_sweeps(const Params& P, cg::grid_group& grid, int r0,
-                         float eps) {
-  __shared__ int s_list[MAX_TILES];
-  __shared__ int s_n, s_open;
-  const int gtid = blockIdx.x * NT + threadIdx.x;
-  const int gthreads = gridDim.x * NT;
-  int r = r0;
+// Store a part's top-2 in its global slot.
+__device__ __forceinline__ void put_part(float* d, const Top2& o) {
+  __stcg(d, o.v1);
+  __stcg(d + 1, __int_as_float(o.j1));
+  __stcg(d + 2, o.v2);
+}
+
+// Gauss-Seidel sweeps from sweep r0 on, over the block's replica; returns
+// the sweep count.  ``sm`` is the tile scratch (GsSmem's part from ``key``
+// on, laid out as GsSmem without the replica); with ``count_open`` block 0
+// writes the rows open at the first sweep's start to trace[0].  With
+// ``solo_ok`` the sweeps may end in the solo endgame (SOLO_UNITS): every
+// block decides it alike at a sweep start, syncs the grid once more and
+// all but block 0 return; ``solo`` tells the caller.
+template <typename Scan>
+__device__ int gs_sweeps(const GsArgs& A, cg::grid_group& grid,
+                         unsigned char* sm, const Replica& R,
+                         const Scan& scan, float eps, float sink, int r0,
+                         bool count_open, bool solo_ok, bool& solo) {
+  const GsSmem L(A.S, A.C, A.ts, A.n_tiles, 2);
+  float* s_p = R.p;
+  int* s_own = R.own;
+  unsigned char* s_open = R.open;
+  unsigned long long* s_key =
+      reinterpret_cast<unsigned long long*>(sm + L.key);
+  int* s_rows = reinterpret_cast<int*>(sm + L.rows);
+  int* s_col = reinterpret_cast<int*>(sm + L.col);
+  int* s_cnt = reinterpret_cast<int*>(sm + L.cnt);
+  int* s_list = reinterpret_cast<int*>(sm + L.list);
+  Top2* s_t = reinterpret_cast<Top2*>(sm + L.t);
+  Top2* s_part = reinterpret_cast<Top2*>(sm + L.part);
+  int* s_misc = reinterpret_cast<int*>(sm + L.misc);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ts = A.ts, U = A.C / 8;
+  const int gcap = min(GMAX, max(1, U / 64));   // parts of >= 512 columns
+  int r = r0, k = 0, scans = 0;
   while (true) {
-    build_active(P, s_list, &s_n, &s_open);
-    if (s_open == 0 || r >= P.max_rounds) break;
-    const float eps_r = __fmul_rn(eps, P.sched[r]);
-    const int n_active = s_n;
-    for (int j = 0; j < n_active; ++j) {
-      const int t = s_list[j];
-      // phase A: bids of the tile's open rows at the current prices
-      for (int lr = blockIdx.x; lr < P.ts; lr += gridDim.x) {
-        const int row = t * P.ts + lr;
-        if (!__ldcg(P.open + row)) {
-          if (threadIdx.x == 0) P.rowdec[lr] = -2;
-          continue;
+    for (int i = tid; i < A.n_tiles; i += WNT) s_cnt[i] = 0;
+    __syncthreads();
+    if (ts % 32 == 0) {   // a warp's 32 rows lie in one tile
+      for (int i0 = tid & ~31; i0 < A.S; i0 += WNT) {
+        const unsigned int bal = __ballot_sync(0xffffffffu, s_open[i0 + lane]);
+        if (lane == 0 && bal) atomicAdd(&s_cnt[i0 / ts], __popc(bal));
+      }
+    } else {
+      for (int i = tid; i < A.S; i += WNT)
+        if (s_open[i]) atomicAdd(&s_cnt[i / ts], 1);
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int n = 0, tot = 0;
+      for (int i = 0; i < A.n_tiles; ++i) {
+        tot += s_cnt[i];
+        if (s_cnt[i] > 0) s_list[n++] = i;
+      }
+      s_misc[0] = n;
+      s_misc[1] = tot;
+    }
+    __syncthreads();
+    const int n_active = s_misc[0];
+    if (count_open && r == r0 && blockIdx.x == 0 && tid == 0)
+      A.trace[0] = s_misc[1];
+    if (s_misc[1] == 0 || r >= A.max_rounds) break;
+    if (solo_ok && !solo && s_misc[1] * U <= SOLO_UNITS * n_active) {
+      solo = true;
+      grid.sync();   // every block's writes so far land before block 0's
+      if (blockIdx.x != 0) return r;
+    }
+    if (blockIdx.x == 0 && tid == 0 && r - r0 < TRACE_SWEEPS)
+      A.trace[3 + r - r0] = n_active;
+    const float eps_r = __fmul_rn(eps, A.sched[r]);
+    for (int j = 0; j < n_active; ++j, ++k) {
+      const int tile = s_list[j];
+      // the tile's open rows, in order: a warp a group of 32 rows, each
+      // group at the open rows of the groups before it (their counts in
+      // s_t, free until the scan)
+      const int ng = (ts + 31) / 32;   // <= WNWARP
+      int* s_gcnt = reinterpret_cast<int*>(s_t);
+      unsigned int bal = 0u;
+      if (warp < ng) {
+        const int i = warp * 32 + lane;
+        bal = __ballot_sync(0xffffffffu, i < ts && s_open[tile * ts + i]);
+        if (lane == 0) s_gcnt[warp] = __popc(bal);
+      }
+      __syncthreads();
+      if (warp < ng) {
+        int off = 0;
+        for (int w = 0; w < warp; ++w) off += s_gcnt[w];
+        if ((bal >> lane) & 1u)
+          s_rows[off + __popc(bal & ((1u << lane) - 1u))] = warp * 32 + lane;
+        if (warp == ng - 1 && lane == 0) s_misc[2] = off + __popc(bal);
+      }
+      __syncthreads();
+      const int n = s_misc[2];
+      scans += n;
+      // solo: block 0 scans whole rows into its own part slots
+      const int nb = solo ? 1 : (int)gridDim.x;
+      const int g = solo ? 1 : min(gcap, max(1, nb / n));
+      float* part = A.part + (size_t)(k & 1) * ts * GMAX * 3;
+      // scan: item = (open row i, column part q); a block takes items
+      // it, it + grid, ...: two at a time where the scan can pair them
+      // (the second's warp partials in the part slots' upper half, free
+      // during the scan)
+      const int items = n * g;
+      for (int it = solo ? 0 : blockIdx.x; it < items; it += nb) {
+        const int i = it / g, q = it - i * g;
+        if constexpr (Scan::PAIR) {
+          const int it2 = it + nb;
+          if (it2 < items) {
+            const int i2 = it2 / g, q2 = it2 - i2 * g;
+            Top2 a, b;
+            scan.pair(s_p, tile * ts + s_rows[i], q * U / g, (q + 1) * U / g,
+                      tile * ts + s_rows[i2], q2 * U / g, (q2 + 1) * U / g,
+                      a, b);
+            block_top2_pair(a, b, s_t, s_part + MAX_ITEMS / 2);
+            if (tid == 0) {
+              if (solo) {
+                s_part[it] = a;
+                s_part[it2] = b;
+              } else {
+                put_part(part + ((size_t)i * GMAX + q) * 3, a);
+                put_part(part + ((size_t)i2 * GMAX + q2) * 3, b);
+              }
+            }
+            it = it2;
+            continue;
+          }
         }
-        const Top2 o = row_scan<T>(P, row, P.p);
-        if (threadIdx.x == 0) {
-          if (o.v1 <= P.sink) {
-            P.rowdec[lr] = -1;
-          } else {
-            float delta = __fadd_rn(__fsub_rn(o.v1, fmaxf(o.v2, P.sink)),
-                                    eps_r);
-            unsigned long long key =
-                ((unsigned long long)f2o(delta) << 32) |
+        const Top2 o = part_scan(scan, s_p, s_t, tile * ts + s_rows[i],
+                                 q * U / g, (q + 1) * U / g);
+        if (tid == 0) {
+          if (solo)
+            s_part[it] = o;
+          else
+            put_part(part + ((size_t)i * GMAX + q) * 3, o);
+        }
+      }
+      if (!solo) {
+        grid.sync();
+        // resolve, the same in every block: merge the parts, bid, decide
+        for (int it = tid; it < n * g; it += WNT) {
+          const int i = it / g, q = it - i * g;
+          const float* d = part + ((size_t)i * GMAX + q) * 3;
+          Top2 u;
+          u.v1 = __ldcg(d);
+          u.j1 = __float_as_int(__ldcg(d + 1));
+          u.v2 = __ldcg(d + 2);
+          s_part[it] = u;
+        }
+      }
+      __syncthreads();
+      int row = -1, col = -1;
+      unsigned long long key = 0ull;
+      if (tid < n) {
+        Top2 o = s_part[tid * g];
+        for (int q = 1; q < g; ++q) o = t2_merge(o, s_part[tid * g + q]);
+        row = tile * ts + s_rows[tid];
+        if (o.v1 > sink) {
+          const float delta =
+              __fadd_rn(__fsub_rn(o.v1, fmaxf(o.v2, sink)), eps_r);
+          col = o.j1;
+          key = ((unsigned long long)f2o(delta) << 32) |
                 (unsigned long long)(0xffffffffu - (unsigned int)row);
-            atomicMax(P.bid + o.j1, key);
-            P.rowdec[lr] = o.j1;
+        }
+        s_col[tid] = col;
+        s_key[tid] = key;
+      }
+      __syncthreads();
+      // the highest key of each bid column wins it
+      bool win = false;
+      if (n > TAB_MIN) {
+        unsigned long long* h_key =
+            reinterpret_cast<unsigned long long*>(sm + L.part);
+        int* h_col = reinterpret_cast<int*>(sm + L.part + 8 * TAB);
+        for (int h = tid; h < TAB; h += WNT) {
+          h_key[h] = 0ull;
+          h_col[h] = -1;
+        }
+        __syncthreads();
+        int h = -1;
+        if (col >= 0) {
+          h = (int)(((unsigned int)col * 2654435761u) >> 22);   // 10 bits
+          while (true) {
+            const int prev = atomicCAS(h_col + h, -1, col);
+            if (prev == -1 || prev == col) break;
+            h = (h + 1) & (TAB - 1);
+          }
+          atomicMax(h_key + h, key);
+        }
+        __syncthreads();
+        win = h >= 0 && h_key[h] == key;
+      } else if (col >= 0) {
+        win = true;
+        for (int m = 0; m < n; ++m)
+          if (s_col[m] == col && s_key[m] > key) win = false;
+      }
+      if (tid < n) {
+        if (col < 0) {
+          s_open[row] = 0;
+          if (solo || tid % gridDim.x == blockIdx.x) A.sunk[row] = 1;
+        } else {
+          if (win) {
+            const int victim = s_own[col];
+            s_own[col] = row;
+            s_p[col] = __fadd_rn(s_p[col], o2f((unsigned int)(key >> 32)));
+            s_open[row] = 0;
+            if (victim >= 0) s_open[victim] = 1;
           }
         }
       }
-      grid.sync();
-      // phase B: resolve — winners take their columns, victims reopen
-      for (int lr = gtid; lr < P.ts; lr += gthreads) {
-        const int row = t * P.ts + lr;
-        const int dec = __ldcg(P.rowdec + lr);
-        if (dec == -1) {
-          P.sunk[row] = 1;
-          P.open[row] = 0;
-        } else if (dec >= 0) {
-          unsigned long long key = __ldcg(P.bid + dec);
-          if ((unsigned int)(key & 0xffffffffu) ==
-              0xffffffffu - (unsigned int)row) {
-            const float dmax = o2f((unsigned int)(key >> 32));
-            const int victim = __ldcg(P.owner + dec);
-            P.owner[dec] = row;
-            P.p[dec] = __fadd_rn(__ldcg(P.p + dec), dmax);
-            P.bid[dec] = 0ull;
-            P.open[row] = 0;
-            if (victim >= 0) P.open[victim] = 1;
-          }
-        }
-      }
-      grid.sync();
+      __syncthreads();
     }
     ++r;
   }
+  if (blockIdx.x == 0 && tid == 0) A.trace[2] = scans;
   return r;
 }
 
+// ===========================================================================
+// K2: one Gauss-Seidel phase on the stored benefits
+// ===========================================================================
+
+struct GsParams {
+  int S, C, ts, n_tiles, max_rounds, complete;
+  const void* mat;                // benefits b [S, C] (bf16 or float32: T)
+  const float* p0;                // [C] start state
+  const int* owner0;              // [C]
+  const int* sunk0;               // [S]
+  const int* open0;               // [S]
+  const float* sched;             // [max_rounds]
+  const float* epsp;              // device scalars
+  const float* sinkp;
+  // outputs
+  float* p;
+  int* owner;
+  int* sunk;
+  int* gcol;
+  int* rounds;
+  // scratch
+  float* part;                    // [2][ts][GMAX][3]
+  int* trace;                     // [3 + TRACE_SWEEPS]: rows open at the
+                                  // start, sweeps, rows scanned, active
+                                  // tiles a sweep
+  float* rp;                      // form 2: [blocks][C] replica prices
+  int* rown;                      // forms 1, 2: [blocks][C] replica owners
+  unsigned char* ropen;           // form 2: [blocks][S] replica open flags
+};
+
+// K2's part scan: the stored row of benefits less the replica prices.  A
+// thread pushes its units u0 + tid, u0 + tid + WNT, ... in that order.
 template <typename T>
-__global__ void __launch_bounds__(NT) gs_phase_kernel(Params P) {
-  cg::grid_group grid = cg::this_grid();
-  const int r = gs_sweeps<T>(P, grid, 0, P.eps);
-  // greedy completion of rows still open: best column at the final prices
-  // or the sink (-1 = row was not open, C = sink)
-  if (P.complete) {
-    for (int row = blockIdx.x; row < P.S; row += gridDim.x) {
-      if (!__ldcg(P.open + row)) continue;
-      const Top2 o = row_scan<T>(P, row, P.p);
-      if (threadIdx.x == 0) P.gcol[row] = (o.v1 > P.sink) ? o.j1 : P.C;
+struct MatScan {
+  static constexpr bool PAIR = true;
+  const T* mat;
+  int C;
+  // Push the 8 columns from c0 of a row's loaded entries ``x``.
+  __device__ __forceinline__ static void push8(Top2& t, const float* x,
+                                               const float* s_p, int c0) {
+    const float4 pa = *reinterpret_cast<const float4*>(s_p + c0);
+    const float4 pb = *reinterpret_cast<const float4*>(s_p + c0 + 4);
+    const float pv[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+    for (int q = 0; q < 8; ++q) t2_push(t, __fsub_rn(x[q], pv[q]), c0 + q);
+  }
+  __device__ __forceinline__ Top2 operator()(const float* s_p, int row,
+                                             int u0, int u1) const {
+    const T* rp = mat + (size_t)row * C;
+    Top2 t = t2_empty();
+    for (int u = u0 + threadIdx.x; u < u1; u += WNT) {
+      float x[8];
+      load8(rp + (size_t)u * 8, x);
+      push8(t, x, s_p, u * 8);
+    }
+    return t;
+  }
+  // Two parts at once (row ra over units [a0, a1), rb over [b0, b1)),
+  // each thread taking the same units as two single scans, their loads
+  // in flight together.
+  __device__ __forceinline__ void pair(const float* s_p, int ra, int a0,
+                                       int a1, int rb, int b0, int b1,
+                                       Top2& ta, Top2& tb) const {
+    const T* pa = mat + (size_t)ra * C;
+    const T* pb = mat + (size_t)rb * C;
+    ta = t2_empty();
+    tb = t2_empty();
+    const int na = a1 - a0, nb = b1 - b0;
+    for (int k = threadIdx.x; k < max(na, nb); k += WNT) {
+      float xa[8], xb[8];
+      if (k < na) load8(pa + (size_t)(a0 + k) * 8, xa);
+      if (k < nb) load8(pb + (size_t)(b0 + k) * 8, xb);
+      if (k < na) push8(ta, xa, s_p, (a0 + k) * 8);
+      if (k < nb) push8(tb, xb, s_p, (b0 + k) * 8);
     }
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *P.rounds = r;
+};
+
+template <typename T, int FORM>
+__global__ void __launch_bounds__(WNT, 1) gs_phase_kernel(GsParams P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::grid_group grid = cg::this_grid();
+  const int gtid = blockIdx.x * WNT + threadIdx.x;
+  const int gthreads = gridDim.x * WNT;
+  const float eps = *P.epsp, sink = *P.sinkp;
+  const GsSmem L(P.S, P.C, P.ts, P.n_tiles, FORM);
+  unsigned char* tsm = smem + L.key;   // the sweeps' tile scratch
+  Replica R;
+  R.p = FORM <= 1 ? reinterpret_cast<float*>(smem + L.p)
+                  : P.rp + (size_t)blockIdx.x * P.C;
+  R.own = FORM == 0 ? reinterpret_cast<int*>(smem + L.own)
+                    : P.rown + (size_t)blockIdx.x * P.C;
+  R.open = FORM <= 1 ? smem + L.open : P.ropen + (size_t)blockIdx.x * P.S;
+  for (int c = threadIdx.x; c < P.C; c += WNT) {
+    R.p[c] = P.p0[c];
+    R.own[c] = P.owner0[c];
+  }
+  for (int i = threadIdx.x; i < P.S; i += WNT)
+    R.open[i] = P.open0[i] != 0 ? 1 : 0;
+  // sink decisions are written after a grid sync, so after this copy
+  for (int i = gtid; i < P.S; i += gthreads) P.sunk[i] = P.sunk0[i];
+  __syncthreads();
+  const GsArgs A = {P.S, P.C, P.ts, P.n_tiles, P.max_rounds,
+                    P.sched, P.part, P.sunk, P.trace};
+  const MatScan<T> scan = {static_cast<const T*>(P.mat), P.C};
+  bool solo = false;
+  const int r = gs_sweeps(A, grid, tsm, R, scan, eps, sink, 0, true, true,
+                          solo);
+  if (solo && blockIdx.x != 0) return;   // block 0 holds the final state
+  const int b0 = solo ? 0 : blockIdx.x, nb = solo ? 1 : gridDim.x;
+  const int t0 = solo ? threadIdx.x : gtid, nt = solo ? WNT : gthreads;
+  // greedy completion of the rows still open: the best column at the
+  // final prices or the sink (-1: the row was not open, C: the sink); a
+  // block a row, or block 0 alone finding them WNT rows at a time
+  const GsSmem Lt(P.S, P.C, P.ts, P.n_tiles, 2);
+  Top2* s_t = reinterpret_cast<Top2*>(tsm + Lt.t);
+  unsigned int* s_m = reinterpret_cast<unsigned int*>(tsm + Lt.part);
+  const auto complete = [&](int row) {
+    const Top2 o = part_scan(scan, R.p, s_t, row, 0, P.C / 8);
+    if (threadIdx.x == 0) P.gcol[row] = (o.v1 > sink) ? o.j1 : P.C;
+  };
+  if (P.complete && !solo) {
+    for (int row = b0; row < P.S; row += nb)
+      if (R.open[row]) complete(row);   // block-uniform
+  } else if (P.complete) {
+    for (int base = 0; base < P.S; base += WNT) {
+      const int i = base + threadIdx.x;
+      const unsigned int bal =
+          __ballot_sync(0xffffffffu, i < P.S && R.open[i]);
+      if ((threadIdx.x & 31) == 0) s_m[threadIdx.x >> 5] = bal;
+      __syncthreads();
+      for (int w = 0; w < WNWARP; ++w)
+        for (unsigned int m = s_m[w]; m; m &= m - 1u)
+          complete(base + w * 32 + __ffs(m) - 1);
+      __syncthreads();   // s_m is rewritten
+    }
+  }
+  for (int i = t0; i < P.S; i += nt)
+    if (!R.open[i] || !P.complete) P.gcol[i] = -1;
+  for (int c = t0; c < P.C; c += nt) {
+    P.p[c] = R.p[c];
+    P.owner[c] = R.own[c];
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *P.rounds = r;
+    P.trace[1] = r;
+  }
 }
 
-static int launch(const void* fn, Params* P, void* stream) {
-  int dev = 0, sms = 0, occ = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, NT, 0);
+// K2's dynamic shared memory in replica form ``form`` (GsSmem).
+static size_t gs_smem(int S, int C, int ts, int form) {
+  return (size_t)GsSmem(S, C, ts, S / ts, form).total;
+}
+
+// K2's replica form at this shape: the first of 0, 1, 2 (GsSmem) whose
+// shared memory fits a block; -1 no form (a tile of more than WNT rows or
+// more than MAX_TILES tiles).
+extern "C" int gs_phase_form(int S, int C, int ts) {
+  if (ts > WNT || S / ts > MAX_TILES) return -1;
+  for (int form = 0; form < 2; ++form)
+    if (gs_smem(S, C, ts, form) <= SMEM_MAX) return form;
+  return 2;
+}
+
+extern "C" size_t gs_phase_smem(int S, int C, int ts, int form) {
+  return gs_smem(S, C, ts, form);
+}
+
+template <typename T, int FORM>
+static int launch_gs(GsParams* P, int nblk, void* stream) {
+  static int sms = 0;
+  const void* fn = (const void*)gs_phase_kernel<T, FORM>;
+  const size_t smem = gs_smem(P->S, P->C, P->ts, FORM);
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)SMEM_MAX);
+  }
+  int occ = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, WNT, smem);
   if (occ < 1) return (int)cudaErrorLaunchOutOfResources;
-  int per_sm = occ < 2 ? occ : 2;
-  int blocks = sms * per_sm;
+  int blocks = min(sms, MAX_ITEMS);
+  if (FORM > 0) blocks = min(blocks, nblk);   // the replica slices there are
   void* args[] = {P};
-  cudaLaunchCooperativeKernel(fn, blocks, NT, args, 0, (cudaStream_t)stream);
+  cudaLaunchCooperativeKernel(fn, blocks, WNT, args, smem,
+                              (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
-extern "C" int gs_phase(const void* b, int f32, float* p, int* owner, int* sunk,
-                        int* open, int* gcol, int* rounds, const float* sched,
-                        float eps, float sink, int max_rounds, int complete,
-                        int S, int C, int ts,
-                        unsigned long long* bid, int* rowdec, void* stream) {
-  Params P = {};
+extern "C" int gs_phase(const void* b, int f32, const float* p0,
+                        const int* owner0, const int* sunk0, const int* open0,
+                        const float* sched, const float* epsp,
+                        const float* sinkp, int max_rounds, int complete,
+                        int S, int C, int ts, float* p, int* owner, int* sunk,
+                        int* gcol, int* rounds, float* part, int* trace,
+                        float* rp, int* rown, unsigned char* ropen, int nblk,
+                        int form, void* stream) {
+  GsParams P = {};
   P.S = S;
   P.C = C;
   P.ts = ts;
   P.n_tiles = S / ts;
   P.max_rounds = max_rounds;
   P.complete = complete;
-  P.sink = sink;
-  P.eps = eps;
-  P.sched = sched;
   P.mat = b;
+  P.p0 = p0;
+  P.owner0 = owner0;
+  P.sunk0 = sunk0;
+  P.open0 = open0;
+  P.sched = sched;
+  P.epsp = epsp;
+  P.sinkp = sinkp;
   P.p = p;
   P.owner = owner;
   P.sunk = sunk;
-  P.open = open;
   P.gcol = gcol;
   P.rounds = rounds;
-  P.bid = bid;
-  P.rowdec = rowdec;
-  return launch(f32 ? (const void*)gs_phase_kernel<float>
-                     : (const void*)gs_phase_kernel<__nv_bfloat16>,
-                &P, stream);
+  P.part = part;
+  P.trace = trace;
+  P.rp = rp;
+  P.rown = rown;
+  P.ropen = ropen;
+  // the form the wrapper's scratch was made for: at least the shape's
+  // own (a larger one keeps more of the replica in global memory)
+  const int fit = gs_phase_form(S, C, ts);
+  if (fit < 0 || form < fit || form > 2) return (int)cudaErrorInvalidValue;
+  if (form > 0 && (rown == nullptr || nblk < 1))
+    return (int)cudaErrorInvalidValue;
+  if (form > 1 && (rp == nullptr || ropen == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (f32)
+    return form == 0 ? launch_gs<float, 0>(&P, nblk, stream)
+           : form == 1 ? launch_gs<float, 1>(&P, nblk, stream)
+                       : launch_gs<float, 2>(&P, nblk, stream);
+  return form == 0 ? launch_gs<__nv_bfloat16, 0>(&P, nblk, stream)
+         : form == 1 ? launch_gs<__nv_bfloat16, 1>(&P, nblk, stream)
+                     : launch_gs<__nv_bfloat16, 2>(&P, nblk, stream);
 }
 
 // ===========================================================================
 // K3: the warm fused iteration
 // ===========================================================================
-
-constexpr int WNT = 512;             // threads per block (one block an SM)
-constexpr int WNWARP = WNT / 32;
-constexpr int RPW = 4;               // sweep 0: rows a warp
-constexpr int BAND = WNWARP * RPW;   // sweep 0: rows a band
-constexpr int CHUNK = 1024;          // sweep 0: columns staged at once
-constexpr int NARR = 6;              // staged arrays: x, y, z, |t|^2, mask, p0
-constexpr int GMAX = 16;             // most column parts of one GS row
-constexpr int TRACE_SWEEPS = 30;     // trace slots for active tiles a sweep
 
 struct WarmParams {
   int S, C, ts, n_tiles, max_rounds;
@@ -336,111 +699,6 @@ struct WarmParams {
                                   // sweeps >= 1, active tiles a sweep
 };
 
-// Eight FD entries kept as loaded (16 or 32 bytes) and converted on use.
-template <typename T>
-struct Raw8;
-
-template <>
-struct Raw8<__nv_bfloat16> {
-  uint4 u;
-  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
-    u = __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  __device__ __forceinline__ unsigned int bits(int q) const {
-    const unsigned int w = q < 2 ? u.x : q < 4 ? u.y : q < 6 ? u.z : u.w;
-    return (q & 1) ? (w >> 16) : (w & 0xffffu);
-  }
-  __device__ __forceinline__ float get(int q) const {
-    return __uint_as_float(bits(q) << 16);
-  }
-};
-
-template <>
-struct Raw8<float> {
-  float4 a, b;
-  __device__ __forceinline__ void load(const float* p) {
-    a = __ldg(reinterpret_cast<const float4*>(p));
-    b = __ldg(reinterpret_cast<const float4*>(p + 4));
-  }
-  __device__ __forceinline__ float get(int q) const {
-    const float4& h = q < 4 ? a : b;
-    const int k = q & 3;
-    return k == 0 ? h.x : k == 1 ? h.y : k == 2 ? h.z : h.w;
-  }
-};
-
-// The mult form's FD factor expf(-k * logf(max(FD, 1e-6))).
-__device__ __forceinline__ float mult_weight(const WarmParams& P, float x) {
-  return expf(__fmul_rn(-P.wfd, logf(fmaxf(x, 1e-6f))));
-}
-
-// With LUT, the mult factor of a bf16 FD in [0, 1] (every bf16 pattern up
-// to 1.0: LUT_N floats) comes from a table the block fills with
-// mult_weight itself, so the bits are the same; a negative FD (its floor
-// is 1e-6, as +0's) reads entry 0 and a larger one is computed.
-constexpr unsigned int LUT_N = 0x3F81;   // bf16 bits of 1.0, plus one
-constexpr int LUT_BYTES = (LUT_N * 4 + 15) & ~15;
-
-template <typename T, bool LUT>
-__device__ __forceinline__ float fd_weight(const WarmParams& P,
-                                           const float* lut,
-                                           const Raw8<T>& x, int q) {
-  if constexpr (LUT) {
-    unsigned int u = x.bits(q);
-    if (u & 0x8000u) u = 0;
-    if (u < LUT_N) return lut[u];
-  }
-  return mult_weight(P, x.get(q));
-}
-
-// Benefit of one valid (row, column) entry, in the order of the plain
-// version (ops/auction_rounds.py::factor_benefits); ``w`` is the mult
-// form's FD factor (unused by the BSC blend).
-template <bool MULT>
-__device__ __forceinline__ float entry_benefit(const WarmParams& P, float sx,
-                                               float sy, float sz, float sw,
-                                               float tx, float ty, float tz,
-                                               float tw, float fdv, float w) {
-  const float d = __fadd_rn(__fadd_rn(__fmul_rn(sx, tx), __fmul_rn(sy, ty)),
-                            __fmul_rn(sz, tz));
-  const float d2 =
-      fmaxf(__fsub_rn(__fadd_rn(sw, tw), __fmul_rn(2.0f, d)), 0.0f);
-  const float ed = __fmul_rn(P.scale, __fsqrt_rn(d2));
-  const float cd =
-      MULT ? __fmul_rn(ed, w)
-           : __fadd_rn(__fmul_rn(P.wed, ed), __fmul_rn(P.wfd, fdv));
-  return -cd;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned int d = (unsigned int)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// Stage columns [cb, cb + width) of the six column arrays into ``buf``.
-// Within each 256-column pass a lane's eight columns sit as two float4
-// halves 128 floats apart, so the warp's reads are conflict-free.
-__device__ __forceinline__ void stage_chunk(const WarmParams& P, float* buf,
-                                            int cb, int width) {
-  const int pieces = width >> 2;   // float4 pieces per array
-  for (int k = threadIdx.x; k < NARR * pieces; k += WNT) {
-    const int a = k / pieces;
-    const int o = (k - a * pieces) << 2;
-    const float* src = (a < 5 ? P.kt + (size_t)a * P.C : P.p0) + cb + o;
-    const int within = o & 255;
-    cp_async16(buf + a * CHUNK + (o & ~255) + ((within >> 2) & 1) * 128 +
-                   (within >> 3) * 4,
-               src);
-  }
-}
-
 // Sweep 0: hints (v1, j1, v2, vsel) of every row at the bidding-start
 // prices and the block's benefit max, folded into P.bmax.
 template <typename T, bool MULT, bool LUT>
@@ -466,9 +724,7 @@ __device__ void sweep0(const WarmParams& P, float* sm, const float* lut) {
         sx[r] = k[0];
         sy[r] = k[1];
         sz[r] = k[2];
-        sw[r] = __fadd_rn(__fadd_rn(__fmul_rn(sx[r], sx[r]),
-                                    __fmul_rn(sy[r], sy[r])),
-                          __fmul_rn(sz[r], sz[r]));
+        sw[r] = sq_norm(sx[r], sy[r], sz[r]);
         const long long a = P.acol0[row];
         ac[r] = (a >= 0 && a < C) ? (int)a : -1;
         mode[r] = P.ms[row] ? 2 : 1;
@@ -476,13 +732,13 @@ __device__ void sweep0(const WarmParams& P, float* sm, const float* lut) {
     }
     const T* fdb =
         static_cast<const T*>(P.fd) + (size_t)(band * BAND + warp * RPW) * C;
-    stage_chunk(P, sm, 0, min(CHUNK, C));
+    stage_chunk(P.kt, P.p0, C, sm, 0, min(CHUNK, C));
     cp_commit();
     for (int ch = 0; ch < nch; ++ch) {
       const int cb = ch * CHUNK;
       if (ch + 1 < nch)
-        stage_chunk(P, sm + ((ch + 1) & 1) * NARR * CHUNK, cb + CHUNK,
-                    min(CHUNK, C - cb - CHUNK));
+        stage_chunk(P.kt, P.p0, C, sm + ((ch + 1) & 1) * NARR * CHUNK,
+                    cb + CHUNK, min(CHUNK, C - cb - CHUNK));
       cp_commit();
       cp_wait1();
       __syncthreads();
@@ -497,19 +753,8 @@ __device__ void sweep0(const WarmParams& P, float* sm, const float* lut) {
           if (mode[r] == 2) x[r].load(fdb + (size_t)r * C + c0);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int o = ps * 256 + h * 128 + lane * 4;
-          const float4 X = *reinterpret_cast<const float4*>(b + o);
-          const float4 Y = *reinterpret_cast<const float4*>(b + CHUNK + o);
-          const float4 Z = *reinterpret_cast<const float4*>(b + 2 * CHUNK + o);
-          const float4 W = *reinterpret_cast<const float4*>(b + 3 * CHUNK + o);
-          const float4 M = *reinterpret_cast<const float4*>(b + 4 * CHUNK + o);
-          const float4 Q = *reinterpret_cast<const float4*>(b + 5 * CHUNK + o);
-          const float tx[4] = {X.x, X.y, X.z, X.w};
-          const float ty[4] = {Y.x, Y.y, Y.z, Y.w};
-          const float tz[4] = {Z.x, Z.y, Z.z, Z.w};
-          const float tw[4] = {W.x, W.y, W.z, W.w};
-          const float tm[4] = {M.x, M.y, M.z, M.w};
-          const float tp[4] = {Q.x, Q.y, Q.z, Q.w};
+          Cols4 k;
+          k.load(b, ps * 256 + h * 128 + lane * 4);
 #pragma unroll
           for (int r = 0; r < RPW; ++r) {
             if (mode[r] == 0) continue;
@@ -517,12 +762,14 @@ __device__ void sweep0(const WarmParams& P, float* sm, const float* lut) {
             for (int q = 0; q < 4; ++q) {
               const int c = c0 + h * 4 + q;
               float bt = NEG_F;
-              if (mode[r] == 2 && tm[q] != 0.0f)
+              if (mode[r] == 2 && k.m[q] != 0.0f)
                 bt = entry_benefit<MULT>(
-                    P, sx[r], sy[r], sz[r], sw[r], tx[q], ty[q], tz[q], tw[q],
+                    P.wed, P.wfd, P.scale, sx[r], sy[r], sz[r], sw[r],
+                    k.x[q], k.y[q], k.z[q], k.w[q],
                     MULT ? 0.0f : x[r].get(h * 4 + q),
-                    MULT ? fd_weight<T, LUT>(P, lut, x[r], h * 4 + q) : 0.0f);
-              const float v = __fsub_rn(bt, tp[q]);
+                    MULT ? fd_weight<T, LUT>(P.wfd, lut, x[r], h * 4 + q)
+                         : 0.0f);
+              const float v = __fsub_rn(bt, k.p[q]);
               t2_push(t[r], v, c);
               if (c == ac[r]) vs[r] = fmaxf(vs[r], v);
               bmx = fmaxf(bmx, bt);
@@ -553,212 +800,62 @@ __device__ void sweep0(const WarmParams& P, float* sm, const float* lut) {
   if (lane == 0) atomicMax(P.bmax, f2o(bmx));
 }
 
-// Shared memory of the Gauss-Seidel sweeps (byte offsets).  A tile's
-// (row, part) slots number at most max(ts, blocks) <= MAX_ITEMS.
-constexpr int MAX_ITEMS = 1024;
-struct GsSmem {
-  int p, own, key, rows, col, cnt, list, t, part, misc, open, total;
-  __host__ __device__ GsSmem(int S, int C, int ts, int n_tiles) {
-    p = 0;
-    own = p + 4 * C;
-    key = own + 4 * C;
-    rows = key + 8 * ts;
-    col = rows + 4 * ts;
-    cnt = col + 4 * ts;
-    list = cnt + 4 * n_tiles;
-    t = list + 4 * n_tiles;
-    part = t + 16 * WNWARP;
-    misc = part + 12 * MAX_ITEMS;
-    open = misc + 16;
-    total = open + ((S + 15) & ~15);
+// K3's part scan: each benefit rebuilt from the FD and the factors.
+template <typename T, bool MULT, bool LUT>
+struct FdScan {
+  static constexpr bool PAIR = false;
+  int C;
+  float wed, wfd, scale;
+  const T* fd;
+  const float* kps;
+  const float* kt;
+  const unsigned char* ms;
+  const float* lut;
+  __device__ __forceinline__ Top2 operator()(const float* s_p, int row,
+                                             int u0, int u1) const {
+    const float* k = kps + 3 * (size_t)row;
+    const float sx = k[0], sy = k[1], sz = k[2];
+    const float sw = sq_norm(sx, sy, sz);
+    const bool valid = ms[row] != 0;
+    const T* rp = fd + (size_t)row * C;
+    Top2 t = t2_empty();
+    for (int u = u0 + threadIdx.x; u < u1; u += WNT) {
+      const int c0 = u * 8;
+      Raw8<T> x;
+      if (valid) x.load(rp + c0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = c0 + 4 * h;
+        const float4 X = __ldg(reinterpret_cast<const float4*>(kt + c));
+        const float4 Y = __ldg(reinterpret_cast<const float4*>(kt + C + c));
+        const float4 Z =
+            __ldg(reinterpret_cast<const float4*>(kt + 2 * C + c));
+        const float4 W =
+            __ldg(reinterpret_cast<const float4*>(kt + 3 * C + c));
+        const float4 M =
+            __ldg(reinterpret_cast<const float4*>(kt + 4 * C + c));
+        const float4 Q = *reinterpret_cast<const float4*>(s_p + c);
+        const float tx[4] = {X.x, X.y, X.z, X.w};
+        const float ty[4] = {Y.x, Y.y, Y.z, Y.w};
+        const float tz[4] = {Z.x, Z.y, Z.z, Z.w};
+        const float tw[4] = {W.x, W.y, W.z, W.w};
+        const float tm[4] = {M.x, M.y, M.z, M.w};
+        const float tp[4] = {Q.x, Q.y, Q.z, Q.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float bt = NEG_F;
+          if (valid && tm[q] != 0.0f)
+            bt = entry_benefit<MULT>(
+                wed, wfd, scale, sx, sy, sz, sw, tx[q], ty[q], tz[q], tw[q],
+                MULT ? 0.0f : x.get(4 * h + q),
+                MULT ? fd_weight<T, LUT>(wfd, lut, x, 4 * h + q) : 0.0f);
+          t2_push(t, __fsub_rn(bt, tp[q]), c + q);
+        }
+      }
+    }
+    return t;
   }
 };
-
-// Top-2 of (b - p) of ``row`` over the 8-column units [u0, u1), at the
-// block's replica prices; all threads return the block's merge.
-template <typename T, bool MULT, bool LUT>
-__device__ Top2 part_scan(const WarmParams& P, const float* s_p, Top2* s_t,
-                          const float* lut, int row, int u0, int u1) {
-  const int C = P.C;
-  const float* k = P.kps + 3 * (size_t)row;
-  const float sx = k[0], sy = k[1], sz = k[2];
-  const float sw = __fadd_rn(__fadd_rn(__fmul_rn(sx, sx), __fmul_rn(sy, sy)),
-                             __fmul_rn(sz, sz));
-  const bool valid = P.ms[row] != 0;
-  const T* rp = static_cast<const T*>(P.fd) + (size_t)row * C;
-  Top2 t = t2_empty();
-  for (int u = u0 + threadIdx.x; u < u1; u += WNT) {
-    const int c0 = u * 8;
-    Raw8<T> x;
-    if (valid) x.load(rp + c0);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = c0 + 4 * h;
-      const float4 X = __ldg(reinterpret_cast<const float4*>(P.kt + c));
-      const float4 Y = __ldg(reinterpret_cast<const float4*>(P.kt + C + c));
-      const float4 Z =
-          __ldg(reinterpret_cast<const float4*>(P.kt + 2 * C + c));
-      const float4 W =
-          __ldg(reinterpret_cast<const float4*>(P.kt + 3 * C + c));
-      const float4 M =
-          __ldg(reinterpret_cast<const float4*>(P.kt + 4 * C + c));
-      const float4 Q = *reinterpret_cast<const float4*>(s_p + c);
-      const float tx[4] = {X.x, X.y, X.z, X.w};
-      const float ty[4] = {Y.x, Y.y, Y.z, Y.w};
-      const float tz[4] = {Z.x, Z.y, Z.z, Z.w};
-      const float tw[4] = {W.x, W.y, W.z, W.w};
-      const float tm[4] = {M.x, M.y, M.z, M.w};
-      const float tp[4] = {Q.x, Q.y, Q.z, Q.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float bt = NEG_F;
-        if (valid && tm[q] != 0.0f)
-          bt = entry_benefit<MULT>(
-              P, sx, sy, sz, sw, tx[q], ty[q], tz[q], tw[q],
-              MULT ? 0.0f : x.get(4 * h + q),
-              MULT ? fd_weight<T, LUT>(P, lut, x, 4 * h + q) : 0.0f);
-        t2_push(t, __fsub_rn(bt, tp[q]), c + q);
-      }
-    }
-  }
-  t = t2_warp_merge(t);
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  if (l == 0) s_t[w] = t;
-  __syncthreads();
-  Top2 r = s_t[0];
-  for (int j = 1; j < WNWARP; ++j) r = t2_merge(r, s_t[j]);
-  __syncthreads();   // s_t is reused by the next part
-  return r;
-}
-
-// Gauss-Seidel sweeps from sweep 1 on, over the block's replica; returns
-// the sweep count.
-template <typename T, bool MULT, bool LUT>
-__device__ int warm_sweeps(const WarmParams& P, cg::grid_group& grid,
-                           unsigned char* sm, const float* lut, float eps,
-                           float sink) {
-  const GsSmem L(P.S, P.C, P.ts, P.n_tiles);
-  float* s_p = reinterpret_cast<float*>(sm + L.p);
-  int* s_own = reinterpret_cast<int*>(sm + L.own);
-  unsigned long long* s_key = reinterpret_cast<unsigned long long*>(sm + L.key);
-  int* s_rows = reinterpret_cast<int*>(sm + L.rows);
-  int* s_col = reinterpret_cast<int*>(sm + L.col);
-  int* s_cnt = reinterpret_cast<int*>(sm + L.cnt);
-  int* s_list = reinterpret_cast<int*>(sm + L.list);
-  Top2* s_t = reinterpret_cast<Top2*>(sm + L.t);
-  Top2* s_part = reinterpret_cast<Top2*>(sm + L.part);
-  int* s_misc = reinterpret_cast<int*>(sm + L.misc);
-  unsigned char* s_open = sm + L.open;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int ts = P.ts, U = P.C / 8;
-  const int gcap = min(GMAX, max(1, U / 64));   // parts of >= 512 columns
-  int r = 1, k = 0, scans = 0;
-  while (true) {
-    for (int i = tid; i < P.n_tiles; i += WNT) s_cnt[i] = 0;
-    __syncthreads();
-    for (int i = tid; i < P.S; i += WNT)
-      if (s_open[i]) atomicAdd(&s_cnt[i / ts], 1);
-    __syncthreads();
-    if (tid == 0) {
-      int n = 0, tot = 0;
-      for (int i = 0; i < P.n_tiles; ++i) {
-        tot += s_cnt[i];
-        if (s_cnt[i] > 0) s_list[n++] = i;
-      }
-      s_misc[0] = n;
-      s_misc[1] = tot;
-    }
-    __syncthreads();
-    const int n_active = s_misc[0];
-    if (s_misc[1] == 0 || r >= P.max_rounds) break;
-    if (blockIdx.x == 0 && tid == 0 && r - 1 < TRACE_SWEEPS)
-      P.trace[2 + r] = n_active;
-    const float eps_r = __fmul_rn(eps, P.sched[r]);
-    for (int j = 0; j < n_active; ++j, ++k) {
-      const int tile = s_list[j];
-      // the tile's open rows, in order
-      if (tid < 32) {
-        int n = 0;
-        for (int base = 0; base < ts; base += 32) {
-          const bool o = base + lane < ts && s_open[tile * ts + base + lane];
-          const unsigned int bal = __ballot_sync(0xffffffffu, o);
-          if (o) s_rows[n + __popc(bal & ((1u << lane) - 1u))] = base + lane;
-          n += __popc(bal);
-        }
-        if (lane == 0) s_misc[2] = n;
-      }
-      __syncthreads();
-      const int n = s_misc[2];
-      scans += n;
-      const int g = min(gcap, max(1, (int)gridDim.x / n));
-      float* part = P.part + (size_t)(k & 1) * ts * GMAX * 3;
-      // scan: item = (open row i, column part q)
-      for (int it = blockIdx.x; it < n * g; it += gridDim.x) {
-        const int i = it / g, q = it - i * g;
-        const Top2 o = part_scan<T, MULT, LUT>(
-            P, s_p, s_t, lut, tile * ts + s_rows[i], q * U / g,
-            (q + 1) * U / g);
-        if (tid == 0) {
-          float* d = part + ((size_t)i * GMAX + q) * 3;
-          __stcg(d, o.v1);
-          __stcg(d + 1, __int_as_float(o.j1));
-          __stcg(d + 2, o.v2);
-        }
-      }
-      grid.sync();
-      // resolve, the same in every block: merge the parts, bid, decide
-      for (int it = tid; it < n * g; it += WNT) {
-        const int i = it / g, q = it - i * g;
-        const float* d = part + ((size_t)i * GMAX + q) * 3;
-        Top2 u;
-        u.v1 = __ldcg(d);
-        u.j1 = __float_as_int(__ldcg(d + 1));
-        u.v2 = __ldcg(d + 2);
-        s_part[it] = u;
-      }
-      __syncthreads();
-      if (tid < n) {
-        Top2 o = s_part[tid * g];
-        for (int q = 1; q < g; ++q) o = t2_merge(o, s_part[tid * g + q]);
-        const int row = tile * ts + s_rows[tid];
-        if (o.v1 <= sink) {
-          s_col[tid] = -1;
-        } else {
-          const float delta =
-              __fadd_rn(__fsub_rn(o.v1, fmaxf(o.v2, sink)), eps_r);
-          s_col[tid] = o.j1;
-          s_key[tid] = ((unsigned long long)f2o(delta) << 32) |
-                       (unsigned long long)(0xffffffffu - (unsigned int)row);
-        }
-      }
-      __syncthreads();
-      if (tid < n) {
-        const int row = tile * ts + s_rows[tid];
-        const int col = s_col[tid];
-        if (col < 0) {
-          s_open[row] = 0;
-          if (tid % gridDim.x == blockIdx.x) P.sunk[row] = 1;
-        } else {
-          const unsigned long long key = s_key[tid];
-          bool win = true;
-          for (int m = 0; m < n; ++m)
-            if (s_col[m] == col && s_key[m] > key) win = false;
-          if (win) {
-            const int victim = s_own[col];
-            s_own[col] = row;
-            s_p[col] = __fadd_rn(s_p[col], o2f((unsigned int)(key >> 32)));
-            s_open[row] = 0;
-            if (victim >= 0) s_open[victim] = 1;
-          }
-        }
-      }
-      __syncthreads();
-    }
-    ++r;
-  }
-  if (blockIdx.x == 0 && tid == 0) P.trace[2] = scans;
-  return r;
-}
 
 template <typename T, bool MULT, bool LUT>
 __global__ void __launch_bounds__(WNT, 1) warm_fused_kernel(WarmParams P) {
@@ -771,8 +868,7 @@ __global__ void __launch_bounds__(WNT, 1) warm_fused_kernel(WarmParams P) {
   const int gthreads = gridDim.x * WNT;
   const float sink = *P.sinkp, dpen = *P.dpenp;
   if (LUT) {
-    for (int u = threadIdx.x; u < (int)LUT_N; u += WNT)
-      lut[u] = mult_weight(P, __uint_as_float((unsigned int)u << 16));
+    fill_lut(P.wfd, lut);
     __syncthreads();
   }
   // ---- sweep 0: exact hints at the bidding-start prices ----------------
@@ -840,29 +936,37 @@ __global__ void __launch_bounds__(WNT, 1) warm_fused_kernel(WarmParams P) {
   }
   grid.sync();
   // ---- Gauss-Seidel sweeps on the block's replica -----------------------
-  const GsSmem L(P.S, P.C, P.ts, P.n_tiles);
-  float* s_p = reinterpret_cast<float*>(smem + L.p);
-  int* s_own = reinterpret_cast<int*>(smem + L.own);
-  unsigned char* s_open = smem + L.open;
+  const GsSmem L(P.S, P.C, P.ts, P.n_tiles, 0);
+  Replica R;
+  R.p = reinterpret_cast<float*>(smem + L.p);
+  R.own = reinterpret_cast<int*>(smem + L.own);
+  R.open = smem + L.open;
   for (int c = threadIdx.x; c < P.C; c += WNT) {
-    s_p[c] = __ldcg(P.p + c);
-    s_own[c] = __ldcg(P.owner + c);
+    R.p[c] = __ldcg(P.p + c);
+    R.own[c] = __ldcg(P.owner + c);
   }
   for (int i = threadIdx.x; i < P.S; i += WNT)
-    s_open[i] = (unsigned char)__ldcg(P.open + i);
+    R.open[i] = (unsigned char)__ldcg(P.open + i);
   __syncthreads();
-  const int r = warm_sweeps<T, MULT, LUT>(P, grid, smem, lut, eps, sink);
+  const GsArgs A = {P.S, P.C, P.ts, P.n_tiles, P.max_rounds,
+                    P.sched, P.part, P.sunk, P.trace};
+  const FdScan<T, MULT, LUT> scan = {P.C, P.wed, P.wfd, P.scale,
+                                     static_cast<const T*>(P.fd), P.kps,
+                                     P.kt, P.ms, lut};
+  bool solo = false;   // K3 keeps every block to its end
+  const int r = gs_sweeps(A, grid, smem + L.key, R, scan, eps, sink, 1,
+                          false, false, solo);
   // ---- write-out and greedy completion from the parked hints -----------
   for (int c = gtid; c < P.C; c += gthreads) {
-    P.p[c] = s_p[c];
-    P.owner[c] = s_own[c];
+    P.p[c] = R.p[c];
+    P.owner[c] = R.own[c];
   }
   for (int i = gtid; i < P.S; i += gthreads) {
     int g = -1;
-    if (s_open[i]) {
+    if (R.open[i]) {
       const int j1 = __ldcg(P.hj1 + i);
       const float v1n =
-          __fadd_rn(__ldcg(P.hv1 + i), __fsub_rn(P.p0[j1], s_p[j1]));
+          __fadd_rn(__ldcg(P.hv1 + i), __fsub_rn(P.p0[j1], R.p[j1]));
       g = (v1n > sink) ? j1 : P.C;
     }
     P.gcol[i] = g;
@@ -884,11 +988,9 @@ __global__ void __launch_bounds__(WNT, 1) warm_fused_kernel(WarmParams P) {
 // replica share it, the table (``lut``) comes on top.
 static size_t warm_smem(int S, int C, int ts, bool lut) {
   const size_t s0 = (size_t)2 * NARR * CHUNK * sizeof(float);
-  const size_t gs = (size_t)GsSmem(S, C, ts, S / ts).total;
+  const size_t gs = (size_t)GsSmem(S, C, ts, S / ts, 0).total;
   return (s0 > gs ? s0 : gs) + (lut ? LUT_BYTES : 0);
 }
-
-constexpr size_t SMEM_MAX = 232448;   // a block's most on this card
 
 extern "C" size_t warm_fused_smem(int S, int C, int ts, int lut) {
   return warm_smem(S, C, ts, lut != 0);

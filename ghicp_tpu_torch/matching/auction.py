@@ -224,35 +224,35 @@ def _gs_phases(b, sink_t, eps_final, eps0, owner, acol, p, max_rounds: int,
     """The GS branch for one pair: ``n_phases`` launches of K2 over a
     geometric ladder from ``eps0`` to exactly ``eps_final``, with the CS
     repair between phases and the last phase's in-kernel greedy
-    completion.  Returns (acol [R], p [C], sweeps, eps bound)."""
+    completion.  Epsilon and the sink reach K2 as device scalars and the
+    sweep count stays on the device: with one phase nothing is read back
+    before the next launch (a ladder reads each phase's sweeps for the
+    next one's budget).  Returns (acol [R], p [C], sweeps, eps bound)."""
     R, C = b.shape
-    dev = b.device
     ts = gs_tile_rows(C)
     sunk = (acol == SINK).to(torch.int32)
     open_ = (acol == -1).to(torch.int32)
     remaining = int(max_rounds)
-    spent = 0
-    esc_after = esc_period = 1
-    r = 0
+    spent = None
     ratio = None
     if n_phases > 1:
         ratio = torch.clamp((eps_final / torch.clamp(eps0, min=1e-30))
                             ** (1.0 / (n_phases - 1)), max=1.0)
-    gcol = None
     for k in range(n_phases):
-        eps_now = (eps_final if k == n_phases - 1
+        last = k == n_phases - 1
+        eps_now = (eps_final if last
                    else torch.maximum(eps0 * ratio ** k, eps_final))
         esc_after = max(remaining // 4, 1)
         esc_period = max(remaining // 16, 1)
         p, owner_k, sunk, r, gcol = auction_phase_gs(
-            b, p, owner.to(torch.int32), sunk, open_, float(eps_now),
-            float(sink_t), remaining, ts=ts, esc_after=esc_after,
-            esc_period=esc_period, complete_open=(k == n_phases - 1))
+            b, p, owner.to(torch.int32), sunk, open_, eps_now, sink_t,
+            remaining, ts=ts, esc_after=esc_after, esc_period=esc_period,
+            complete_open=last)
         owner = owner_k.to(torch.int64)
-        r = int(r)
-        remaining -= r
-        spent += r
-        if k < n_phases - 1:
+        r = torch.as_tensor(r, device=b.device)
+        spent = r if spent is None else spent + r
+        if not last:
+            remaining -= int(r)
             eps_next = torch.maximum(eps0 * ratio ** (k + 1), eps_final)
             acol = derive_acol(owner, sunk, R)
             st = _reopen_violators(
@@ -267,7 +267,8 @@ def _gs_phases(b, sink_t, eps_final, eps0, owner, acol, p, max_rounds: int,
     acol = torch.where((acol == -1) & (gcol >= 0),
                        torch.where(gcol < C, gcol, SINK), acol)
     eps_bound = eps_final * torch.exp2(
-        _f(max(r - esc_after, 0), dev) / float(esc_period))
+        torch.clamp(r - esc_after, min=0).to(torch.float32)
+        / float(esc_period))
     return acol, p, spent, eps_bound
 
 
@@ -364,7 +365,7 @@ def auction_assign(b, sink_value, eps, max_rounds, rel_eps: float = 0.0,
             b[0], sink[0], eps_final[0], eps0[0], owner_init[0],
             acol_init[0], p_init[0], int(mr[0]), n_phases)
         acol, p, eps_bound = acol[None], p[None], eps_bound.reshape(1)
-        rounds = np.array([spent])
+        rounds = spent.reshape(1)
     else:
         act = (np.ones(P, bool) if active is None
                else np.asarray(active, bool))

@@ -33,12 +33,13 @@ Semantics of one phase (both versions):
 from __future__ import annotations
 
 import ctypes
-import struct
+import functools
 
 import torch
 
 from ghicp_tpu_torch.ops import as_rows, count_launch, require_device
-from ghicp_tpu_torch.ops.cost_kernel import _f32, _factors, factor_cost
+from ghicp_tpu_torch.ops.cost_kernel import (_f32, _factors, factor_cost,
+                                             orderable, target_factors)
 
 NEG = -3.0e38
 _BIG = 2**31 - 1
@@ -48,8 +49,7 @@ PART_MAX = 16          # K3: most column parts of one Gauss-Seidel row
 _SMEM_MAX = 232448     # shared memory a block may take on this card
 LUT_N = 0x3F81         # K3's table of the mult FD factor: bf16 0 ... 1.0
 _LUT_BYTES = (LUT_N * 4 + 15) & ~15
-# orderable key of the benefit floor NEG (the float's bits inverted)
-_NEG_KEY = ~struct.unpack("<I", struct.pack("<f", NEG))[0] & 0x7FFFFFFF
+_NEG_KEY = orderable(NEG)   # orderable key of the benefit floor NEG
 
 
 def gs_tile_rows(C: int) -> int:
@@ -60,16 +60,38 @@ def gs_tile_rows(C: int) -> int:
     return ts
 
 
+def gs_smem_bytes(S: int, C: int, ts: int, form: int = 0) -> int:
+    """The Gauss-Seidel sweeps' shared memory a block
+    (``csrc/auction.cu::GsSmem``): a tile's keys, rows and columns, the
+    tile counts and list, part slots and the replica's part in shared
+    memory: form 0 the prices and owners [C] and the open flags [S], form 1
+    the prices and open flags (the owners in a global slice a block), form
+    2 none (all three in global slices)."""
+    rep = {0: 8 * C, 1: 4 * C, 2: 0}[form]
+    if form <= 1:
+        rep += (S + 15) & ~15
+    return rep + 16 * ts + 8 * (S // ts) + 16 * 16 + 12 * 1024 + 16
+
+
+def gs_replica_form(S: int, C: int, ts: int) -> int:
+    """K2's replica form at this shape (``csrc/auction.cu::gs_phase_form``):
+    the first of 0, 1, 2 (:func:`gs_smem_bytes`) that fits a block's shared
+    memory (0 to about 23,500 slots, 1 to about 42,000); -1 no form (more
+    than 512 rows a tile or MAX_TILES tiles)."""
+    if ts > 512 or S // ts > MAX_TILES:
+        return -1
+    return next((f for f in (0, 1) if gs_smem_bytes(S, C, ts, f)
+                 <= _SMEM_MAX), 2)
+
+
 def warm_smem_bytes(S: int, C: int, ts: int, lut: bool = False) -> int:
     """K3's dynamic shared memory a block (``csrc/auction.cu::warm_smem``):
     the larger of sweep 0's staging (two buffers of six 1024-column
-    arrays) and the Gauss-Seidel replica (prices and owners [C], open flags
-    [S], a tile's keys, rows and columns, the tile counts and list, part
-    slots), plus the mult form's FD factor table with ``lut``."""
+    arrays) and the Gauss-Seidel sweeps' (:func:`gs_smem_bytes`, with the
+    replica), plus the mult form's FD factor table with ``lut``."""
     stage = 2 * 6 * 1024 * 4
-    replica = (8 * C + 16 * ts + 8 * (S // ts) + 16 * 16 + 12 * 1024 + 16
-               + ((S + 15) & ~15))
-    return max(stage, replica) + (_LUT_BYTES if lut else 0)
+    return max(stage, gs_smem_bytes(S, C, ts, 0)) + (_LUT_BYTES if lut
+                                                      else 0)
 
 
 def warm_kernel_fits(S: int, C: int, ts: int) -> bool:
@@ -167,8 +189,11 @@ def _gs_sweeps_plain(mat, p, owner, sunk, open_, eps, sink, sched, r0,
 
 def auction_phase_gs_plain(b, p0, owner0, sunk0, open0, eps, sink,
                            max_rounds: int, ts: int, sched=None,
-                           complete_open: bool = False):
-    """Plain PyTorch version of K2 (same contract as the kernel)."""
+                           complete_open: bool = False, trace=None):
+    """Plain PyTorch version of K2 (same contract as the kernel; ``eps``
+    and ``sink`` floats or float32 scalar tensors).  With ``trace`` (an
+    int32 tensor of 3 + ``TRACE_SWEEPS``) the kernel's record: [rows open
+    at the start, sweeps, rows scanned, active tiles of sweep 0, 1, ...]."""
     S, C = b.shape
     dev = b.device
     p = p0.to(torch.float32).clone()
@@ -177,10 +202,16 @@ def auction_phase_gs_plain(b, p0, owner0, sunk0, open0, eps, sink,
     open_ = open0.to(torch.int32).clone()
     if sched is None:
         sched = escalation_schedule(max_rounds, 0, 1)
-    eps_t = torch.tensor(_f32(eps), dtype=torch.float32, device=dev)
-    sink = _f32(sink)
+    eps_t = _device_scalar(eps, dev)
+    sink = _device_scalar(sink, dev)
+    active = [] if trace is not None else None
+    n_open = int(open_.sum()) if trace is not None else 0
     r = _gs_sweeps_plain(b, p, owner, sunk, open_, eps_t, sink, sched, 0,
-                         int(max_rounds), ts)
+                         int(max_rounds), ts, active)
+    if trace is not None:
+        rec = ([n_open, r, sum(n for _, n in active)]
+               + [a for a, _ in active[:TRACE_SWEEPS]])
+        trace[:len(rec)] = torch.tensor(rec, dtype=torch.int32)
     gcol = torch.full((S,), -1, dtype=torch.int32, device=dev)
     if complete_open:
         for t in range(S // ts):
@@ -392,9 +423,13 @@ def _lib():
     from ghicp_tpu_torch.ops._build import cuda_library
     lib = cuda_library("auction")
     if not getattr(lib, "_typed", False):
-        lib.gs_phase.argtypes = ([_VP, _I] + [_VP] * 7 + [_F, _F]
-                                 + [_I] * 5 + [_VP] * 3)
+        lib.gs_phase.argtypes = ([_VP, _I] + [_VP] * 7 + [_I] * 5
+                                 + [_VP] * 10 + [_I, _I, _VP])
         lib.gs_phase.restype = _I
+        lib.gs_phase_form.argtypes = [_I, _I, _I]
+        lib.gs_phase_form.restype = _I
+        lib.gs_phase_smem.argtypes = [_I, _I, _I, _I]
+        lib.gs_phase_smem.restype = ctypes.c_size_t
         lib.warm_fused.argtypes = ([_VP, _I, _I] + [_VP] * 11 + [_F] * 5
                                    + [_I] * 4 + [_VP] * 18)
         lib.warm_fused.restype = _I
@@ -422,38 +457,118 @@ def _check_shapes(S, C, ts, what):
                          f"most {MAX_TILES} tiles (S={S}, C={C}, ts={ts})")
 
 
+class GsScratch:
+    """K2's scratch for one shape on one device, made once a process
+    (:func:`gs_scratch`) and reused by every launch at that shape: the
+    part slots, the trace and, in replica forms 1 and 2
+    (:func:`gs_replica_form`; ``form`` forces a larger one), the replica's
+    global slices, one a block; and the escalation tables on the device,
+    one a (budget, esc_after, esc_period).  The scratch serves one launch
+    at a time, on one stream.  After a launch ``trace`` holds [rows open
+    at the start, sweeps, rows scanned, active tiles of sweep 0, 1, ...]
+    (up to ``TRACE_SWEEPS`` sweeps)."""
+
+    def __init__(self, dev, S: int, C: int, ts: int, form=None):
+        self.dev = torch.device(dev)
+        fit = gs_replica_form(S, C, ts)
+        if fit < 0:
+            raise ValueError(f"auction_phase_gs: S={S}, C={C}, ts={ts}: "
+                             f"more than 512 rows a tile or {MAX_TILES} "
+                             "tiles")
+        self.form = fit if form is None else int(form)
+        if not fit <= self.form <= 2:
+            raise ValueError(f"auction_phase_gs: replica form {form} at "
+                             f"S={S}, C={C} (the shape's own is {fit})")
+        e = lambda shape, dt: torch.empty(shape, dtype=dt, device=self.dev)
+        self.part = e((2 * ts * PART_MAX * 3,), torch.float32)
+        self.trace = torch.zeros((3 + TRACE_SWEEPS,), dtype=torch.int32,
+                                 device=self.dev)
+        self.nblk = 0
+        rep = (None, None, None)
+        if self.form > 0:
+            self.nblk = (torch.cuda.get_device_properties(
+                self.dev).multi_processor_count
+                         if self.dev.type == "cuda" else 1)
+            rep = (e((self.nblk, C), torch.float32) if self.form > 1
+                   else None, e((self.nblk, C), torch.int32),
+                   e((self.nblk, S), torch.uint8) if self.form > 1 else None)
+        self.replica = rep
+        if self.dev.type == "cuda":
+            lib = _lib()
+            got = lib.gs_phase_form(S, C, ts)
+            if got != fit:
+                raise RuntimeError(f"auction_phase_gs: the kernel's replica "
+                                   f"form {got}, gs_replica_form says {fit}")
+            for f in (0, 1, 2):
+                got = lib.gs_phase_smem(S, C, ts, f)
+                if got != gs_smem_bytes(S, C, ts, f):
+                    raise RuntimeError(
+                        f"auction_phase_gs: the kernel takes {got} bytes of "
+                        f"shared memory in form {f}, gs_smem_bytes says "
+                        f"{gs_smem_bytes(S, C, ts, f)}")
+        self.ptrs = tuple(0 if x is None else x.data_ptr()
+                          for x in (self.part, self.trace, *rep))
+        self._sched = {}
+
+    def schedule(self, max_rounds: int, esc_after: int, esc_period: int):
+        """The escalation table on this device, made once a key."""
+        key = (int(max_rounds), int(esc_after), int(esc_period))
+        if key not in self._sched:
+            self._sched[key] = escalation_schedule(*key).to(self.dev)
+        return self._sched[key]
+
+
+def gs_scratch(dev, S: int, C: int, ts: int, form=None) -> GsScratch:
+    """The :class:`GsScratch` of this shape (and ``form``) on ``dev``, made
+    once."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _gs_scratch(dev, int(S), int(C), int(ts), form)
+
+
+@functools.lru_cache(maxsize=8)
+def _gs_scratch(dev, S: int, C: int, ts: int, form) -> GsScratch:
+    return GsScratch(dev, S, C, ts, form)
+
+
 def auction_phase_gs_cuda(b, p0, owner0, sunk0, open0, eps, sink,
                           max_rounds: int, ts: int, sched=None,
-                          complete_open: bool = False):
-    """Launch K2 on the card (bf16 or float32 benefits)."""
-    from ghicp_tpu_torch.ops._build import check, ptr
+                          complete_open: bool = False, *, scratch=None):
+    """Launch K2 on the card (bf16 or float32 benefits) with ``scratch``
+    (:func:`gs_scratch` of the shape when None).  The start state is read,
+    not updated: no clone; ``eps`` and ``sink`` reach the kernel as device
+    scalars, so nothing is read back or copied from the host."""
+    from ghicp_tpu_torch.ops._build import check
     S, C = b.shape
     _check_shapes(S, C, ts, "auction_phase_gs")
     f32_mat = _matrix_dtype(b, "auction_phase_gs")
     dev = b.device
+    if scratch is None:
+        scratch = gs_scratch(dev, S, C, ts)
     b = b.contiguous()
     f32, i32 = torch.float32, torch.int32
-    # state copies the kernel updates in place
-    p = as_rows(p0, C, 0, f32, dev, "p0").clone()
-    owner = as_rows(owner0, C, 0, i32, dev, "owner0").clone()
-    sunk = as_rows(sunk0, S, 0, i32, dev, "sunk0").clone()
-    open_ = as_rows(open0, S, 0, i32, dev, "open0").clone()
-    gcol = torch.full((S,), -1, dtype=torch.int32, device=dev)
-    rounds = torch.zeros((1,), dtype=torch.int32, device=dev)
+    p0 = as_rows(p0, C, 0, f32, dev, "p0")
+    owner0 = as_rows(owner0, C, 0, i32, dev, "owner0")
+    sunk0 = as_rows(sunk0, S, 0, i32, dev, "sunk0")
+    open0 = as_rows(open0, S, 0, i32, dev, "open0")
     if sched is None:
-        sched = escalation_schedule(max_rounds, 0, 1)
+        sched = scratch.schedule(max_rounds, 0, 1)
     sched = as_rows(sched, max(int(max_rounds), 1), 0, f32, dev, "sched")
-    bid = torch.zeros((C,), dtype=torch.int64, device=dev)
-    rowdec = torch.empty((ts,), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().gs_phase(ptr(b), int(f32_mat), ptr(p), ptr(owner), ptr(sunk), ptr(open_),
-                         ptr(gcol), ptr(rounds), ptr(sched), _f32(eps),
-                         _f32(sink), int(max_rounds), int(bool(complete_open)),
-                         S, C, ts, ptr(bid), ptr(rowdec),
-                         _VP(stream))
+    eps, sink = _device_scalar(eps, dev), _device_scalar(sink, dev)
+    p = torch.empty((C,), dtype=f32, device=dev)
+    owner, sunk, gcol, rounds = torch.empty(
+        (C + 2 * S + 1,), dtype=i32, device=dev).split([C, S, S, 1])
+    rc = _lib().gs_phase(
+        b.data_ptr(), int(f32_mat), p0.data_ptr(), owner0.data_ptr(),
+        sunk0.data_ptr(), open0.data_ptr(), sched.data_ptr(),
+        eps.data_ptr(), sink.data_ptr(), int(max_rounds),
+        int(bool(complete_open)), S, C, ts, p.data_ptr(), owner.data_ptr(),
+        sunk.data_ptr(), gcol.data_ptr(), rounds.data_ptr(), *scratch.ptrs,
+        scratch.nblk, scratch.form, torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "auction_phase_gs launch")
     count_launch("auction_phase_gs_f32" if f32_mat else "auction_phase_gs")
-    return p, owner, sunk, rounds[0], gcol
+    return p, owner, sunk, rounds.view(()), gcol
 
 
 def auction_phase_gs(b, p0, owner0, sunk0, open0, eps, sink, max_rounds: int,
@@ -461,13 +576,20 @@ def auction_phase_gs(b, p0, owner0, sunk0, open0, eps, sink, max_rounds: int,
                      complete_open: bool = False):
     """One Gauss-Seidel auction phase.  Returns (p [C], owner [C],
     sunk [S], rounds, gcol [S]); ``gcol`` is the greedy completion of rows
-    still open (-1 = was not open, C = sink) when ``complete_open``."""
-    sched = escalation_schedule(max_rounds, esc_after, esc_period)
-    args = (b, p0, owner0, sunk0, open0, eps, sink, int(max_rounds), ts,
-            sched, complete_open)
+    still open (-1 = was not open, C = sink) when ``complete_open``.
+    ``eps`` and ``sink`` are floats or float32 scalar tensors (on the card
+    read there, no host round trip); the escalation table and the scratch
+    are made once a shape (:func:`gs_scratch`)."""
     if require_device(b, "auction_phase_gs") == "cuda":
-        return auction_phase_gs_cuda(*args)
-    return auction_phase_gs_plain(*args)
+        scratch = gs_scratch(b.device, *b.shape, ts)
+        return auction_phase_gs_cuda(
+            b, p0, owner0, sunk0, open0, eps, sink, int(max_rounds), ts,
+            scratch.schedule(max_rounds, esc_after, esc_period),
+            complete_open, scratch=scratch)
+    return auction_phase_gs_plain(
+        b, p0, owner0, sunk0, open0, eps, sink, int(max_rounds), ts,
+        escalation_schedule(max_rounds, esc_after, esc_period),
+        complete_open)
 
 
 class WarmInputs:
@@ -491,8 +613,7 @@ class WarmInputs:
         self.mask_t = as_rows(mask_t, C, 0, torch.bool, dev, "mask_t")
         self.kt_rows = _factors(as_rows(kp_t, C, 3, torch.float32, dev,
                                         "kp_t"))
-        self.kt = torch.cat([self.kt_rows.t(),
-                             self.mask_t[None].to(torch.float32)]).contiguous()
+        self.kt = target_factors(self.kt_rows[:, :3], self.mask_t)
         self.trace = torch.zeros((3 + TRACE_SWEEPS,), dtype=torch.int32,
                                  device=dev)
         self._sched = {}

@@ -1,4 +1,5 @@
-"""Fused cost -> benefit sweep (kernel K1), Triton, with its plain version.
+"""Fused cost -> benefit sweep (kernel K1), CUDA C++ in ``csrc/cost.cu``,
+with its plain version.
 
 Replaces the TPU kernel ``ghicp_tpu/ops/cost_kernel.py::fused_benefit``
 (Pallas ``_kernel``).  In one pass over the [S, C] stripe it computes
@@ -17,21 +18,20 @@ max CD (only ``with_stats``), max ED and max(-CD) over valid pairs.
 The FD is bf16 or, on the ``auction_bf16=False`` lane, float32.
 
 Bound on this card: memory — one FD read and one b write, 268 MB at
-8192^2 in bf16 (80 us at 3.35 TB/s), twice that in float32; the
-arithmetic (~20 float ops an entry) sits far below the float32 rate.  Design: one program per block of rows
-walks the columns in blocks with running row maxima, so FD is read once
-and b written once; the cross term is three float32 products (no tensor
-cores: the JAX package computes it at HIGHEST precision), and floating-
-point fusion is off so the result matches the plain version bit for bit.
-The multiplicative blend takes libdevice's ``expf`` / ``logf`` (what
-PyTorch's ``exp`` / ``log`` call on the card), not ``tl.exp`` / ``tl.log``,
-which lower to the approximate ``ex2`` / ``lg2``.  Each program writes its
-statistics to a small [programs, 8] buffer that the wrapper reduces.  The
-float32 variants count their launches as ``fused_benefit_f32`` and
-``fused_benefit_mult_f32``.
+8192^2 in bf16 (80 us at 3.35 TB/s), twice that in float32.  The kernel
+walks bands of 64 rows with K3's sweep-0 machinery (``csrc/sweep.cuh``:
+target factors staged by cp.async in double-buffered chunks, 16-byte FD
+reads and b writes, the bf16 mult form's FD factor from a table in shared
+memory), folds its statistics in the launch and rounds every operation as
+the plain version does, so b, v1, vsel, the count and the maxima are
+bit-equal to it (the sums differ by their order).  The target's factor
+rows and the kernel's scratch are a :class:`CostTarget`, made once an
+engine run.  The float32 variants count their launches as
+``fused_benefit_f32`` and ``fused_benefit_mult_f32``.
 """
 from __future__ import annotations
 
+import struct
 from typing import Optional
 
 import torch
@@ -40,15 +40,19 @@ from ghicp_tpu_torch.matching.cost import cross3, sq_norm3
 from ghicp_tpu_torch.ops import as_rows, count_launch, require_device
 
 NEG = -3.0e38
-BLOCK_S = 32
-BLOCK_C = 256
-
-_KERNEL = None
 
 
 def _f32(x) -> float:
     """A Python float holding the float32 rounding of ``x``."""
-    return float(torch.tensor(float(x), dtype=torch.float32))
+    return struct.unpack("<f", struct.pack("<f", float(x)))[0]
+
+
+def orderable(x: float) -> int:
+    """The kernels' orderable key of float32 ``x`` (csrc/top2.cuh f2o), as
+    a signed 32-bit int."""
+    u = struct.unpack("<I", struct.pack("<f", x))[0]
+    u = (~u & 0xFFFFFFFF) if u & 0x80000000 else (u | 0x80000000)
+    return u - (1 << 32) if u & 0x80000000 else u
 
 
 def _factors(kp: torch.Tensor) -> torch.Tensor:
@@ -101,7 +105,8 @@ def fused_benefit_plain(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     if with_stats:
         cdm = torch.where(m, cd, 0.0)
-        cnt = m.to(torch.float32).sum()
+        # the exact count, rounded once (the kernel counts in integers)
+        cnt = m.sum().to(torch.float32)
         s1, s2 = cdm.sum(), (cdm * cd).sum()
         cdmax = torch.clamp(cdm.amax(), min=0.0)
     else:
@@ -111,135 +116,113 @@ def fused_benefit_plain(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
     return (bf.to(fd.dtype), cnt, s1, s2, cdmax, edmax, bmax, v1, vsel)
 
 
-def _kernel():
-    global _KERNEL
-    if _KERNEL is not None:
-        return _KERNEL
-    from ghicp_tpu_torch.ops._build import triton_cache
-    triton_cache()
-    import triton
-    import triton.language as tl
-    try:
-        from triton.language.extra import libdevice
-    except ImportError:
-        from triton.language.extra.cuda import libdevice
+def target_factors(kp_t, mask_t) -> torch.Tensor:
+    """[5, C] float32 rows x, y, z, |t|^2 (the kernels' order) and the
+    target mask as 0 / 1: the column factors K1 and K3 stage."""
+    return torch.cat([_factors(kp_t).t(),
+                      mask_t[None].to(torch.float32)]).contiguous()
 
-    @triton.jit
-    def fused_benefit_kernel(kps_ptr, kpt_ptr, fd_ptr, ms_ptr, mt_ptr, p_ptr,
-                             ac_ptr, b_ptr, v1_ptr, vsel_ptr, part_ptr,
-                             S, C, wed, wfd, scale,
-                             WITH_STATS: tl.constexpr, MULT: tl.constexpr,
-                             B_F32: tl.constexpr, BLOCK_S: tl.constexpr,
-                             BLOCK_C: tl.constexpr):
-        pid = tl.program_id(0)
-        rows = pid * BLOCK_S + tl.arange(0, BLOCK_S)
-        rmask = rows < S
-        sx = tl.load(kps_ptr + rows * 4 + 0, mask=rmask, other=0.0)
-        sy = tl.load(kps_ptr + rows * 4 + 1, mask=rmask, other=0.0)
-        sz = tl.load(kps_ptr + rows * 4 + 2, mask=rmask, other=0.0)
-        s2 = tl.load(kps_ptr + rows * 4 + 3, mask=rmask, other=0.0)
-        ms = tl.load(ms_ptr + rows, mask=rmask, other=0) != 0
-        ac = tl.load(ac_ptr + rows, mask=rmask, other=-1)
-        v1 = tl.full([BLOCK_S], float("-inf"), tl.float32)
-        vsel = tl.full([BLOCK_S], -3.0e38, tl.float32)
-        cnt = tl.zeros([BLOCK_S], tl.float32)
-        sum1 = tl.zeros([BLOCK_S], tl.float32)
-        sum2 = tl.zeros([BLOCK_S], tl.float32)
-        cdmax = tl.zeros([BLOCK_S], tl.float32)
-        edmax = tl.zeros([BLOCK_S], tl.float32)
-        bmax = tl.full([BLOCK_S], -3.0e38, tl.float32)
-        for c0 in range(0, C, BLOCK_C):
-            cols = c0 + tl.arange(0, BLOCK_C)
-            cmask = cols < C
-            tx = tl.load(kpt_ptr + cols * 4 + 0, mask=cmask, other=0.0)
-            ty = tl.load(kpt_ptr + cols * 4 + 1, mask=cmask, other=0.0)
-            tz = tl.load(kpt_ptr + cols * 4 + 2, mask=cmask, other=0.0)
-            t2 = tl.load(kpt_ptr + cols * 4 + 3, mask=cmask, other=0.0)
-            mt = tl.load(mt_ptr + cols, mask=cmask, other=0) != 0
-            p = tl.load(p_ptr + cols, mask=cmask, other=0.0)
-            off = rows[:, None].to(tl.int64) * C + cols[None, :]
-            m2 = rmask[:, None] & cmask[None, :]
-            fdv = tl.load(fd_ptr + off, mask=m2, other=0.0).to(tl.float32)
-            d = ((sx[:, None] * tx[None, :] + sy[:, None] * ty[None, :])
-                 + sz[:, None] * tz[None, :])
-            d2 = tl.maximum((s2[:, None] + t2[None, :]) - 2.0 * d, 0.0)
-            ed = scale * tl.sqrt_rn(d2)
-            if MULT:
-                cd = ed * libdevice.exp(
-                    -wfd * libdevice.log(tl.maximum(fdv, 1e-6)))
-            else:
-                cd = wed * ed + wfd * fdv
-            m = ms[:, None] & mt[None, :] & m2
-            b = tl.where(m, -cd, -3.0e38)
-            if B_F32:
-                tl.store(b_ptr + off, b, mask=m2)
-            else:
-                tl.store(b_ptr + off, b.to(tl.bfloat16), mask=m2)
-            v = tl.where(cmask[None, :], b - p[None, :], float("-inf"))
-            v1 = tl.maximum(v1, tl.max(v, axis=1))
-            hit = cols[None, :] == ac[:, None]
-            vsel = tl.maximum(vsel, tl.max(tl.where(hit, v, -3.0e38), axis=1))
-            if WITH_STATS:
-                cdm = tl.where(m, cd, 0.0)
-                cnt += tl.sum(m.to(tl.float32), axis=1)
-                sum1 += tl.sum(cdm, axis=1)
-                sum2 += tl.sum(cdm * cd, axis=1)
-                cdmax = tl.maximum(cdmax, tl.max(cdm, axis=1))
-            edmax = tl.maximum(edmax, tl.max(tl.where(m, ed, 0.0), axis=1))
-            bmax = tl.maximum(bmax, tl.max(tl.where(m, -cd, -3.0e38), axis=1))
-        tl.store(v1_ptr + rows, v1, mask=rmask)
-        tl.store(vsel_ptr + rows, vsel, mask=rmask)
-        base = part_ptr + pid * 8
-        tl.store(base + 0, tl.sum(cnt, axis=0))
-        tl.store(base + 1, tl.sum(sum1, axis=0))
-        tl.store(base + 2, tl.sum(sum2, axis=0))
-        tl.store(base + 3, tl.max(cdmax, axis=0))
-        tl.store(base + 4, tl.max(edmax, axis=0))
-        tl.store(base + 5, tl.max(bmax, axis=0))
 
-    _KERNEL = fused_benefit_kernel
-    return _KERNEL
+def _identity(t) -> tuple:
+    return (t.data_ptr(), tuple(t.shape), t.dtype, t._version)
+
+
+class CostTarget:
+    """What every K1 launch against one target reads unchanged, made once
+    an engine run (``registration/ghicp.py::make_body``): the column
+    factors ``kt`` [5, C] (:func:`target_factors`) and, on the card, the
+    kernel's scratch (its statistics' accumulators, which each launch
+    leaves as it found them).  It keeps the identity (address, shape, type
+    and version) of ``kp_t`` and ``mask_t`` and refuses others."""
+
+    def __init__(self, kp_t, mask_t):
+        C = kp_t.shape[0]
+        dev = kp_t.device
+        self.kp_t = as_rows(kp_t, C, 3, torch.float32, dev, "kp_t")
+        self.mask_t = as_rows(mask_t, C, 0, torch.bool, dev, "mask_t")
+        self.ident = (_identity(kp_t), _identity(mask_t))
+        self.kt = target_factors(self.kp_t, self.mask_t)
+        self.scratch = None
+        if dev.type == "cuda":
+            z = lambda n, dt: torch.zeros((n,), dtype=dt, device=dev)
+            mx = torch.tensor([orderable(0.0), orderable(0.0),
+                               orderable(NEG)], dtype=torch.int32).to(dev)
+            self.scratch = (z(2, torch.float64), z(1, torch.int64), mx,
+                            z(1, torch.int32))
+            self.ptrs = (self.kt.data_ptr(),
+                         *(x.data_ptr() for x in self.scratch))
+
+    def check(self, kp_t, mask_t) -> None:
+        if (kp_t is not None and mask_t is not None
+                and (_identity(kp_t), _identity(mask_t)) != self.ident):
+            raise ValueError("fused_benefit: the target differs from the "
+                             "one its CostTarget was made from")
+
+
+def _lib():
+    from ghicp_tpu_torch.ops._build import cuda_library
+    lib = cuda_library("cost")
+    if not getattr(lib, "_typed", False):
+        import ctypes
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.fused_benefit.argtypes = ([vp, i, i, i] + [vp] * 5 + [i]
+                                      + [f] * 3 + [i] * 2 + [vp] * 9)
+        lib.fused_benefit.restype = i
+        lib._typed = True
+    return lib
 
 
 def fused_benefit_cuda(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
                        p_defl, acol0, with_stats: bool = True,
-                       mult_blend: bool = False):
-    """Launch K1 on the card (bf16 or float32 FD in, b out in its type)."""
+                       mult_blend: bool = False, target=None):
+    """Launch K1 on the card (bf16 or float32 FD in, b out in its type)
+    with ``target`` (a :class:`CostTarget` of ``kp_t`` and ``mask_t``,
+    made here when None)."""
+    from ghicp_tpu_torch.ops._build import check
     S, C = fd.shape
     if fd.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused_benefit kernel takes a bf16 or float32 FD "
                          f"matrix, got {fd.dtype}")
+    if C % 128:
+        raise ValueError(f"fused_benefit kernel needs C % 128 == 0 (C={C})")
+    if target is None:
+        target = CostTarget(kp_t, mask_t)
+    else:
+        target.check(kp_t, mask_t)
     f32_mat = fd.dtype == torch.float32
     dev = fd.device
-    f32, i32 = torch.float32, torch.int32
-    ks = _factors(as_rows(kp_s, S, 3, f32, dev, "kp_s"))
-    kt = _factors(as_rows(kp_t, C, 3, f32, dev, "kp_t"))
+    kps = as_rows(kp_s, S, 3, torch.float32, dev, "kp_s")
+    ms = as_rows(mask_s, S, 0, torch.bool, dev, "mask_s")
+    p = as_rows(p_defl, C, 0, torch.float32, dev, "p_defl")
+    if p.data_ptr() % 16:
+        p = p.clone()
+    if not (torch.is_tensor(acol0) and acol0.dtype in (torch.int32,
+                                                       torch.int64)):
+        acol0 = torch.as_tensor(acol0).to(torch.int64)
+    acol0 = as_rows(acol0, S, 0, acol0.dtype, dev, "acol0")
     fd = fd.contiguous()
     b = torch.empty((S, C), dtype=fd.dtype, device=dev)
-    v1 = torch.empty((S,), dtype=torch.float32, device=dev)
-    vsel = torch.empty((S,), dtype=torch.float32, device=dev)
-    n_prog = -(-S // BLOCK_S)
-    part = torch.zeros((n_prog, 8), dtype=torch.float32, device=dev)
-    kern = _kernel()
-    kern[(n_prog,)](ks, kt, fd, as_rows(mask_s, S, 0, i32, dev, "mask_s"),
-                    as_rows(mask_t, C, 0, i32, dev, "mask_t"),
-                    as_rows(p_defl, C, 0, f32, dev, "p_defl"),
-                    as_rows(acol0, S, 0, i32, dev, "acol0"), b, v1, vsel, part,
-                    S, C, _f32(wed), _f32(wfd), _f32(scale),
-                    WITH_STATS=bool(with_stats), MULT=bool(mult_blend),
-                    B_F32=f32_mat, BLOCK_S=BLOCK_S,
-                    BLOCK_C=BLOCK_C, num_warps=8, enable_fp_fusion=False)
+    v1, vsel, st = torch.empty((2 * S + 6,), dtype=torch.float32,
+                               device=dev).split([S, S, 6])
+    kt_p, *scratch = target.ptrs
+    rc = _lib().fused_benefit(
+        fd.data_ptr(), int(f32_mat), int(bool(mult_blend)),
+        int(bool(with_stats)), kps.data_ptr(), kt_p, ms.data_ptr(),
+        p.data_ptr(), acol0.data_ptr(), int(acol0.dtype == torch.int64),
+        _f32(wed), _f32(wfd), _f32(scale), S, C, b.data_ptr(),
+        v1.data_ptr(), vsel.data_ptr(), st.data_ptr(), *scratch,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(rc, "fused_benefit launch")
     count_launch("fused_benefit" + ("_mult" if mult_blend else "")
                  + ("_f32" if f32_mat else ""))
-    tot = part.to(torch.float64).sum(dim=0).to(torch.float32)
-    mx = part.amax(dim=0)
-    return (b, tot[0], tot[1], tot[2], mx[3], mx[4], mx[5], v1, vsel)
+    return (b, *st.unbind(), v1, vsel)
 
 
 def fused_benefit(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
                   p_defl: Optional[torch.Tensor] = None,
                   acol0: Optional[torch.Tensor] = None,
-                  with_stats: bool = True, mult_blend: bool = False):
+                  with_stats: bool = True, mult_blend: bool = False,
+                  target: Optional[CostTarget] = None):
     """One-sweep benefit matrix + CD statistics + warm-start hints.
 
     kp_s [S, 3], kp_t [C, 3] float32 (centred by a common offset first);
@@ -247,8 +230,10 @@ def fused_benefit(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
     ``acol0`` [S] previous assignment feed v1/vsel.  Returns (b [S, C] in
     the FD's type, cd_count, cd_sum, cd_sumsq, cd_max, ed_max, b_max,
     v1 [S], vsel [S]).  ``mult_blend`` takes the FPFH/RoPS cost
-    ED / max(FD, 1e-6)^k with k in the ``wfd`` slot.  CUDA tensors run the
-    Triton kernel, CPU tensors the plain version.
+    ED / max(FD, 1e-6)^k with k in the ``wfd`` slot.  ``target``: the
+    :class:`CostTarget` of ``kp_t`` and ``mask_t``, made once by the caller
+    for all sweeps against that target (made a call when None).  CUDA
+    tensors run the kernel, CPU tensors the plain version.
     """
     S, C = fd.shape
     dev = fd.device
@@ -259,6 +244,6 @@ def fused_benefit(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
     if require_device(fd, "fused_benefit") == "cuda":
         return fused_benefit_cuda(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd,
                                   scale, p_defl, acol0, with_stats,
-                                  mult_blend)
+                                  mult_blend, target)
     return fused_benefit_plain(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd,
                                scale, p_defl, acol0, with_stats, mult_blend)

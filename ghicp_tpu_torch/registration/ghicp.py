@@ -77,7 +77,8 @@ from ghicp_tpu_torch.ops.auction_rounds import (WarmInputs,
                                                 auction_warm_fused,
                                                 gs_tile_rows,
                                                 warm_kernel_fits)
-from ghicp_tpu_torch.ops.cost_kernel import fused_benefit, mult_cost
+from ghicp_tpu_torch.ops.cost_kernel import (CostTarget, fused_benefit,
+                                             mult_cost)
 from ghicp_tpu_torch.ops.stream_kernel import (stream_selected, stream_sweep,
                                                sweep_target)
 from ghicp_tpu_torch.registration.estimator import estimate
@@ -342,6 +343,9 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
     # masks, FD, the kernel's scratch), made once here
     warm_in = (WarmInputs(kp_t_c, fd_b, mask_s, mask_t, ts_gs)
                if use_warm_kernel else None)
+    # what every K1 sweep of this run reads of the target, made once
+    cost_tgt = (CostTarget(kp_t_c, mask_t)
+                if not use_stream and dev.type == "cuda" else None)
     # what every streaming sweep of this run reads of the target, made once
     stream_tgt = (sweep_target(kp_t_c, stream, mask_t)
                   if use_stream and dev.type == "cuda" else None)
@@ -351,7 +355,7 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
          vsel_mid) = fused_benefit(kps_c, kp_t_c, fd_b, mask_s, mask_t, wed,
                                    wfd, scale, p_defl=p_mid, acol0=st.acol,
                                    with_stats=not bsc or not it_eff > 1.0,
-                                   mult_blend=mult)
+                                   mult_blend=mult, target=cost_tgt)
         n_valid = torch.clamp(cnt, min=1.0)
         mean = s1 / n_valid
         std = torch.sqrt(torch.clamp(s2 / n_valid - mean * mean, min=0.0))

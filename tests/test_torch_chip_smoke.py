@@ -37,20 +37,24 @@ def test_compare_phase_at_small_size(monkeypatch):
     rows = chip_smoke.compare_kernels(
         torch, seed=7, size=512, device="cpu", stream_rows=512,
         stream_cols=384, compact_rows=128,
-        top2_shapes=((2, 128, 256, "bfloat16"), (1, 64, 96, "float32")))
-    assert [r["name"] for r in rows] == ["fused_benefit", "auction_phase_gs",
-                                         "auction_warm_fused",
+        top2_shapes=((2, 128, 256, "bfloat16"), (1, 64, 96, "float32")),
+        big=768, no_table=512)
+    assert [r["name"] for r in rows] == ["fused_benefit",
                                          "fused_benefit_mult",
+                                         "fused_benefit_f32",
+                                         "fused_benefit_mult_f32",
+                                         "auction_phase_gs",
+                                         "auction_phase_gs_f32",
+                                         "auction_warm_fused",
                                          "auction_warm_fused_mult",
+                                         "auction_warm_fused_f32",
+                                         "auction_warm_fused_mult_f32",
                                          "nms_exact", "stream_sweep",
                                          "top2_rows", "stream_sweep_mult",
                                          "stream_sweep_col",
                                          "stream_sweep_mult_col",
                                          "stream_sweep_none",
                                          "stream_sweep_none_col",
-                                         "fused_benefit_f32",
-                                         "auction_phase_gs_f32",
-                                         "auction_warm_fused_f32",
                                          "auction_rounds",
                                          "auction_rounds_f32",
                                          "auction_phase"]
@@ -71,8 +75,21 @@ def test_compare_phase_at_small_size(monkeypatch):
             "stream_sweep_none", "stream_sweep_none_col",
             "stream_sweep_mult", "stream_sweep_mult_col",
             "auction_warm_fused_mult") else "bytes")
+        if r["name"].startswith(("fused_benefit", "auction_phase_gs")):
+            # K1 at both sizes; K2 cold and warm at both, the larger in
+            # its own replica form and the all-global one
+            assert r["route"] == "cuda" and r["kernel_ms"] > 0
+            want = ([512, 768] if r["name"].startswith("fused") else
+                    [(512, 0), (512, 0), (768, 0), (768, 0), (768, 2),
+                     (768, 2)])
+            got = [c["S"] if r["name"].startswith("fused") else
+                   (c["S"], c["form"]) for c in r["cases"]]
+            assert got == want
         if r["name"] in ("stream_sweep_mult", "stream_sweep_col",
-                         "stream_sweep_mult_col"):
+                         "stream_sweep_mult_col", "fused_benefit",
+                         "fused_benefit_mult", "fused_benefit_f32",
+                         "fused_benefit_mult_f32", "auction_phase_gs",
+                         "auction_phase_gs_f32"):
             # each case timed as a call and as the kernel alone
             assert r["cases"] and all(
                 c["ms"] > 0 and c["kernel_ms"] > 0 and c["bound_ms"] > 0
@@ -87,6 +104,11 @@ def test_compare_phase_at_small_size(monkeypatch):
             assert min(r["kernel_ms"], r["budget16_ms"],
                        r["budget16_kernel_ms"]) > 0
             assert r["budget16_bound_ms"] >= r["bound_ms"]
+        if r["name"] == "auction_warm_fused_mult":
+            # the bf16 mult form without its table (on the card at
+            # 20,480 slots)
+            (case,) = r["cases"]
+            assert not case["table"] and case["kernel_ms"] > 0
         if r["name"] == "top2_rows":
             assert r["library_ms"] > 0
         else:
@@ -329,3 +351,56 @@ def test_register_spread_repeats_without_counting(monkeypatch, capsys):
     assert (f"engine register stage over {chip_smoke.ENGINE_REPEATS} "
             "registrations") in out
     assert f"spread {min(secs):.5f}-{max(secs):.5f} s" in out
+
+
+def test_k1_bound_counts_what_cost_kernel_runs():
+    """K1's operations an entry, form by form, as csrc/cost.cu runs them:
+    __fsqrt_rn by its SASS instructions; the bf16 mult form's FD factor
+    from the table each block fills once (expf and logf there, by their
+    SASS instructions, LUT_N entries a block), the float32 one's expf and
+    logf an entry; the statistics and bf16's packing where the form has
+    them."""
+    from ghicp_tpu_torch.ops.auction_rounds import LUT_N
+    c = chip_smoke.SASS_COUNTS
+    base = chip_smoke.K1_ENTRY_OPS + c["sqrt"]
+    st, bf = chip_smoke.K1_STATS_OPS, chip_smoke.K1_BF16_OPS
+    k1 = chip_smoke.k1_ops
+    assert k1(8192, False, False, True, 128) == (
+        base + st + bf + chip_smoke.K1_BSC_OPS, 0)
+    assert k1(8192, False, True, False, 128) == (
+        base + chip_smoke.K1_BSC_OPS, 0)
+    assert k1(8192, True, False, True, 128) == (
+        base + st + bf + chip_smoke.K1_MULT_OPS + chip_smoke.K1_LUT_OPS,
+        128 * LUT_N * (c["exp"] + c["log"] + chip_smoke.K3_TABLE_EXTRA_OPS))
+    assert k1(8192, True, True, True, 128) == (
+        base + st + chip_smoke.K1_MULT_OPS + chip_smoke.K1_FLOOR_OPS
+        + c["exp"] + c["log"], 0)
+    # a band of 64 rows a block, at most one block an SM
+    assert chip_smoke.k1_blocks(torch, 8192) == 128
+    assert chip_smoke.k1_blocks(torch, 24576) == 132
+
+
+@pytest.mark.parametrize("integral", [True, False])
+def test_engine_inputs_keeps_the_fd(integral):
+    """With ``with_fd`` the record keeps the engine's FD: as uint16 where it
+    is the BSC's integer Hamming distances (the verdict record), else as
+    float32."""
+    import dataclasses
+
+    import ghicp_tpu_torch.registration.pipeline as tpl
+    from ghicp_tpu_torch.core.config import CorrespondenceType, GHICPConfig
+    rng = np.random.default_rng(4)
+    kp = rng.uniform(0, 5, (64, 3)).astype(np.float32)
+    m = np.ones(64, bool)
+    fd = rng.integers(0, 441, (64, 64)).astype(np.float32)
+    if not integral:
+        fd = fd / 441.0
+    cfg = dataclasses.replace(GHICPConfig(),
+                              correspondence=CorrespondenceType.NN,
+                              max_iterations=1)
+    seen = {}
+    with chip_smoke.engine_inputs(torch, seen, with_fd=True):
+        tpl.ghicp_register_chunked(kp, m, kp + 0.01, m, fd, 7.5, cfg,
+                                   device="cpu")
+    assert seen["fd"].dtype == (np.uint16 if integral else np.float32)
+    np.testing.assert_array_equal(seen["fd"].astype(np.float32), fd)

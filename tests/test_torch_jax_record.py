@@ -283,3 +283,81 @@ def test_config6_none_nnr_on_the_port_keypoints():
                                         port_vs_jax_m=tr)), flush=True)
     assert rot < 0.5 and tr < 0.1, (rot, tr)
     assert rot < 0.05 and tr < 0.01, (rot, tr)
+
+
+# The verdict run's engine inputs as the port took them on the card
+# (``chip_smoke.py --save-engine-inputs``, phase 3, --seed 7): keypoints,
+# masks, the BSC FD (uint16 Hamming distances), bounding box and RANSAC
+# pose
+VERDICT_INPUTS = pathlib.Path(__file__).parent / "data" / "verdict_bsc_km.npz"
+
+
+@pytest.mark.slow
+def test_verdict_trajectory_on_the_port_keypoints():
+    """Both packages' dense BSC + KM engines, on a CPU, from the verdict
+    run's engine inputs as the port took them on the card, each with its
+    final resolve (ROADMAP Queue 3, the verdict trajectory): the JAX
+    package in its kernel lane (K1-K3 in interpret mode, as on a TPU) and
+    in the XLA lane it takes on a CPU (Jacobi rounds), the port in its
+    kernel lane (as on the card).  One ``JAX record`` line a run, with its
+    correspondences and RMSE an iteration, its pose error and its distance
+    from the card's pose.  The port retraces the JAX kernel lane iteration
+    by iteration (the same correspondences, RMSE within rtol 1e-5, the
+    same iterations, as the card's run) and both lanes succeed within the
+    verdict bound (< 0.5 deg / 0.1 m): a trajectory of another length comes
+    from the lane (and, in the JAX record, from its own RANSAC draws)."""
+    import jax
+    import jax.numpy as jnp
+
+    import ghicp_tpu.matching.auction as jau
+    import ghicp_tpu.registration.ghicp as jgh
+    from ghicp_tpu_torch.interop import config_from_dict
+    from ghicp_tpu_torch.registration.ghicp import ghicp_register_chunked
+    d = np.load(VERDICT_INPUTS)
+    conf = json.loads(str(d["config"]))
+    fd = d["fd"].astype(np.float32)
+    args = [d[k] for k in ("kp_s", "mask_s", "kp_t", "mask_t")]
+
+    def jax_run(kernels: bool):
+        # the lane is read when the engine is traced: no cached trace of
+        # the other lane may serve this run
+        jax.clear_caches()
+        old = (jgh._FUSED_INTERPRET, jau._KERNEL_INTERPRET)
+        jgh._FUSED_INTERPRET = jau._KERNEL_INTERPRET = kernels
+        try:
+            return jgh.ghicp_register_chunked(
+                *(jnp.asarray(x) for x in args), jnp.asarray(fd),
+                jnp.float32(d["bbx"]), _jax_config(conf),
+                init_transform=jnp.asarray(d["init_transform"]),
+                it_shift=float(d["it_shift"]))
+        finally:
+            jgh._FUSED_INTERPRET, jau._KERNEL_INTERPRET = old
+    M = ghicp_register_chunked(
+        *args, fd, float(d["bbx"]), config_from_dict(conf),
+        init_transform=d["init_transform"], it_shift=float(d["it_shift"]),
+        device="cpu")
+    runs = {}
+    for name, res in (("JAX kernel lane", jax_run(True)),
+                      ("JAX XLA lane", jax_run(False)),
+                      ("port kernel lane", M)):
+        its = int(res.iterations)
+        met = res.metrics
+        T_est = np.asarray(res.transform)
+        rot, tr = transform_error(T_est, d["T_gt"])
+        rot_c, tr_c = transform_error(T_est, d["transform"])
+        runs[name] = dict(
+            iterations=its, cor=np.asarray(met.cor)[:its].tolist(),
+            rmse=[float(x) for x in np.asarray(met.rmse)[:its]],
+            final_rmse=float(res.final_rmse), success=bool(res.success),
+            rot_err_deg=rot, t_err_m=tr, from_card_deg=rot_c,
+            from_card_m=tr_c)
+        print("JAX record", json.dumps(dict(
+            run=name, feature="bsc", correspondence="km", start="RANSAC",
+            keypoints=[int(d["mask_s"].sum()), int(d["mask_t"].sum())],
+            slots=len(d["kp_s"]), **runs[name])), flush=True)
+    j, m = runs["JAX kernel lane"], runs["port kernel lane"]
+    assert m["iterations"] == j["iterations"] == int(d["iterations"])
+    assert m["cor"] == j["cor"]
+    np.testing.assert_allclose(m["rmse"], j["rmse"], rtol=1e-5)
+    for r in runs.values():
+        assert r["success"] and r["rot_err_deg"] < 0.5 and r["t_err_m"] < 0.1
