@@ -57,10 +57,10 @@ class GHICPConfig:
     # --- sub-voxel keypoint refinement ---
     refine_keypoints: bool = True
     refine_radius: float = 0.0            # 0 = auto (3 * voxel_size)
-    refine_method: str = "centroid"       # only "centroid" is ported
+    refine_method: str = "centroid"       # "centroid" | "corner"
     min_curvature: float = 0.0
 
-    # --- adaptive keypoint target band (not ported yet) ---
+    # --- adaptive keypoint target band ---
     adaptive_keypoints: bool = False
     keypoints_min: int = 5000
     keypoints_max: int = 50000
@@ -73,7 +73,7 @@ class GHICPConfig:
     bsc_offsets: int = 1
     bsc_offset_delta: float = 0.0         # 0 = voxel_size / 2
 
-    # --- FPFH / RoPS features (not ported yet) ---
+    # --- FPFH / RoPS features ---
     fpfh_k: int = 20
     fpfh_radius: float = 0.0
     rops_radius: float = 0.0
@@ -110,7 +110,7 @@ class GHICPConfig:
     ransac_tau: float = 0.0               # 0 = 3 * voxel_size
     ransac_hypotheses: int = 1 << 17
     ransac_min_inliers: int = 12
-    identity_hypotheses: int = 1          # only 1 is ported
+    identity_hypotheses: int = 1          # coarse_init none: 1-3 shifts
     ransac_candidates: int = 4
     ransac_max_rows: int = 8192
 

@@ -37,10 +37,13 @@
 // by comparing all pairs below that.  K2's solve may end in the solo
 // endgame (SOLO_UNITS): block 0 alone, whole-row scans, no grid sync.
 // The replica lives in shared memory where it fits (GsSmem form 0: 8 bytes
-// a column and one a row, to about 23,500 slots); past that (K2 only) the
-// owners move to a global slice a block (form 1: to about 42,000 slots)
-// and then the prices and open flags too (form 2), read through L1, so the
-// shape stops at the scratch's size, not at the card's shared memory.  A
+// a column and one a row, to about 23,500 slots); past that (both kernels)
+// the owners move to a global slice a block (form 1: to about 42,000
+// slots) and then the prices and open flags too (form 2), read through L1,
+// so the shape stops at the scratch's size, not at the card's shared
+// memory.  The tile counts and the tile list take 8 bytes a tile of the
+// tile scratch, so the tile count has no cap of its own: a shape runs
+// where the scratch of some form fits a block.  A
 // part scan is a functor: K3 rebuilds each benefit from the FD and the
 // factors (FdScan), K2 reads the stored matrix (MatScan), two parts at a
 // time where a block has them.
@@ -51,7 +54,7 @@
 // final prices (a block-wide scan a row: best column or the sink) and the
 // replica is written out.
 //
-// K3 design (warm_fused_kernel<T, MULT, LUT>):
+// K3 design (warm_fused_kernel<T, MULT, LUT, FORM>):
 //   sweep 0  each block owns bands of 64 rows, a warp 4 of them.  Chunks of
 //            1024 columns of the column factors (x, y, z, |t|^2, mask) and
 //            the bidding-start prices are staged in shared memory with
@@ -66,7 +69,9 @@
 //            helpers of sweep.cuh.)
 //   round 0  the keep test, the column release and the round-0 Jacobi bids
 //            (64-bit atomicMax slots) between grid syncs, as the TPU kernel.
-//   sweeps   gs_sweeps from sweep 1, the replica in shared memory.
+//   sweeps   gs_sweeps from sweep 1, the replica in replica form FORM
+//            (sweep 0's staging, two buffers of six 1024-column arrays,
+//            shares the shared memory with the replica's part there).
 //   end      greedy completion of the rows left open from the parked hints,
 //            then the replica is written out.
 // The scratch (bid slots, hints, part slots, the benefit-max key, a counter,
@@ -91,8 +96,6 @@
 #include "top2.cuh"
 
 namespace cg = cooperative_groups;
-
-#define MAX_TILES 1024
 
 constexpr int GMAX = 16;             // most column parts of one GS row
 constexpr int TRACE_SWEEPS = 30;     // trace slots for active tiles a sweep
@@ -571,13 +574,13 @@ static size_t gs_smem(int S, int C, int ts, int form) {
 }
 
 // K2's replica form at this shape: the first of 0, 1, 2 (GsSmem) whose
-// shared memory fits a block; -1 no form (a tile of more than WNT rows or
-// more than MAX_TILES tiles).
+// shared memory fits a block; -1 no form (a tile of more than WNT rows, or
+// a tile scratch past a block's shared memory even in form 2).
 extern "C" int gs_phase_form(int S, int C, int ts) {
-  if (ts > WNT || S / ts > MAX_TILES) return -1;
-  for (int form = 0; form < 2; ++form)
+  if (ts > WNT) return -1;
+  for (int form = 0; form <= 2; ++form)
     if (gs_smem(S, C, ts, form) <= SMEM_MAX) return form;
-  return 2;
+  return -1;
 }
 
 extern "C" size_t gs_phase_smem(int S, int C, int ts, int form) {
@@ -697,6 +700,9 @@ struct WarmParams {
   int* trace;                     // [3 + TRACE_SWEEPS]: rows open after
                                   // the keep test, sweeps, rows scanned in
                                   // sweeps >= 1, active tiles a sweep
+  float* rp;                      // form 2: [blocks][C] replica prices
+  int* rown;                      // forms 1, 2: [blocks][C] replica owners
+  unsigned char* ropen;           // form 2: [blocks][S] replica open flags
 };
 
 // Sweep 0: hints (v1, j1, v2, vsel) of every row at the bidding-start
@@ -857,7 +863,7 @@ struct FdScan {
   }
 };
 
-template <typename T, bool MULT, bool LUT>
+template <typename T, bool MULT, bool LUT, int FORM>
 __global__ void __launch_bounds__(WNT, 1) warm_fused_kernel(WarmParams P) {
   extern __shared__ __align__(16) unsigned char smem_all[];
   // [the mult factor table (LUT)][sweep 0's staging | the sweeps' replica]
@@ -936,11 +942,15 @@ __global__ void __launch_bounds__(WNT, 1) warm_fused_kernel(WarmParams P) {
   }
   grid.sync();
   // ---- Gauss-Seidel sweeps on the block's replica -----------------------
-  const GsSmem L(P.S, P.C, P.ts, P.n_tiles, 0);
+  // (form 0 in shared memory; 1: the owners in the block's global slice;
+  // 2: the prices and open flags there too)
+  const GsSmem L(P.S, P.C, P.ts, P.n_tiles, FORM);
   Replica R;
-  R.p = reinterpret_cast<float*>(smem + L.p);
-  R.own = reinterpret_cast<int*>(smem + L.own);
-  R.open = smem + L.open;
+  R.p = FORM <= 1 ? reinterpret_cast<float*>(smem + L.p)
+                  : P.rp + (size_t)blockIdx.x * P.C;
+  R.own = FORM == 0 ? reinterpret_cast<int*>(smem + L.own)
+                    : P.rown + (size_t)blockIdx.x * P.C;
+  R.open = FORM <= 1 ? smem + L.open : P.ropen + (size_t)blockIdx.x * P.S;
   for (int c = threadIdx.x; c < P.C; c += WNT) {
     R.p[c] = __ldcg(P.p + c);
     R.own[c] = __ldcg(P.owner + c);
@@ -984,23 +994,35 @@ __global__ void __launch_bounds__(WNT, 1) warm_fused_kernel(WarmParams P) {
   }
 }
 
-// Dynamic shared memory of one block: sweep 0's staging and the sweeps'
-// replica share it, the table (``lut``) comes on top.
-static size_t warm_smem(int S, int C, int ts, bool lut) {
+// Dynamic shared memory of one block in replica form ``form``: sweep 0's
+// staging and the sweeps' part of GsSmem share it, the table (``lut``)
+// comes on top.
+static size_t warm_smem(int S, int C, int ts, bool lut, int form) {
   const size_t s0 = (size_t)2 * NARR * CHUNK * sizeof(float);
-  const size_t gs = (size_t)GsSmem(S, C, ts, S / ts, 0).total;
+  const size_t gs = (size_t)GsSmem(S, C, ts, S / ts, form).total;
   return (s0 > gs ? s0 : gs) + (lut ? LUT_BYTES : 0);
 }
 
-extern "C" size_t warm_fused_smem(int S, int C, int ts, int lut) {
-  return warm_smem(S, C, ts, lut != 0);
+extern "C" size_t warm_fused_smem(int S, int C, int ts, int lut, int form) {
+  return warm_smem(S, C, ts, lut != 0, form);
 }
 
-template <typename T, bool MULT, bool LUT>
-static int launch_warm(WarmParams* P, void* stream) {
+// K3's replica form at this shape: the first of 0, 1, 2 whose shared
+// memory, without the mult form's table, fits a block; -1 none (a tile of
+// more than WNT rows, or a tile scratch past a block's shared memory).
+// The bf16 mult form takes its table where it fits beside that form.
+extern "C" int warm_fused_form(int S, int C, int ts) {
+  if (ts > WNT) return -1;
+  for (int form = 0; form <= 2; ++form)
+    if (warm_smem(S, C, ts, false, form) <= SMEM_MAX) return form;
+  return -1;
+}
+
+template <typename T, bool MULT, bool LUT, int FORM>
+static int launch_warm(WarmParams* P, int nblk, void* stream) {
   static int sms = 0;
-  const void* fn = (const void*)warm_fused_kernel<T, MULT, LUT>;
-  const size_t smem = warm_smem(P->S, P->C, P->ts, LUT);
+  const void* fn = (const void*)warm_fused_kernel<T, MULT, LUT, FORM>;
+  const size_t smem = warm_smem(P->S, P->C, P->ts, LUT, FORM);
   if (sms == 0) {
     int dev = 0;
     cudaGetDevice(&dev);
@@ -1011,10 +1033,21 @@ static int launch_warm(WarmParams* P, void* stream) {
   int occ = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, WNT, smem);
   if (occ < 1) return (int)cudaErrorLaunchOutOfResources;
+  int blocks = min(sms, MAX_ITEMS);
+  if (FORM > 0) blocks = min(blocks, nblk);   // the replica slices there are
   void* args[] = {P};
-  cudaLaunchCooperativeKernel(fn, min(sms, MAX_ITEMS), WNT, args, smem,
+  cudaLaunchCooperativeKernel(fn, blocks, WNT, args, smem,
                               (cudaStream_t)stream);
   return (int)cudaGetLastError();
+}
+
+// One (T, MULT, LUT) form of K3 in replica form ``form``.
+template <typename T, bool MULT, bool LUT>
+static int launch_warm_form(WarmParams* P, int nblk, int form,
+                            void* stream) {
+  return form == 0   ? launch_warm<T, MULT, LUT, 0>(P, nblk, stream)
+         : form == 1 ? launch_warm<T, MULT, LUT, 1>(P, nblk, stream)
+                     : launch_warm<T, MULT, LUT, 2>(P, nblk, stream);
 }
 
 extern "C" int warm_fused(const void* fd, int f32, int mult, const float* kps,
@@ -1029,7 +1062,9 @@ extern "C" int warm_fused(const void* fd, int f32, int mult, const float* kps,
                           float* stats, unsigned long long* bid, int* open,
                           int* vic, float* hv1, int* hj1, float* hv2,
                           float* hvsel, float* part, unsigned int* bmax,
-                          int* cnt, int* trace, void* stream) {
+                          int* cnt, int* trace, float* rp, int* rown,
+                          unsigned char* ropen, int nblk, int form,
+                          void* stream) {
   WarmParams P = {};
   P.S = S;
   P.C = C;
@@ -1070,12 +1105,29 @@ extern "C" int warm_fused(const void* fd, int f32, int mult, const float* kps,
   P.bmax = bmax;
   P.cnt = cnt;
   P.trace = trace;
+  P.rp = rp;
+  P.rown = rown;
+  P.ropen = ropen;
+  // the form the wrapper's scratch was made for: at least the shape's
+  // own (a larger one keeps more of the replica in global memory)
+  const int fit = warm_fused_form(S, C, ts);
+  if (fit < 0 || form < fit || form > 2) return (int)cudaErrorInvalidValue;
+  if (form > 0 && (rown == nullptr || nblk < 1))
+    return (int)cudaErrorInvalidValue;
+  if (form > 1 && (rp == nullptr || ropen == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (f32)
-    return mult ? launch_warm<float, true, false>(&P, stream)
-                : launch_warm<float, false, false>(&P, stream);
-  if (!mult) return launch_warm<__nv_bfloat16, false, false>(&P, stream);
-  // the bf16 mult form takes its factor table where it fits
-  return warm_smem(S, C, ts, true) <= SMEM_MAX
-             ? launch_warm<__nv_bfloat16, true, true>(&P, stream)
-             : launch_warm<__nv_bfloat16, true, false>(&P, stream);
+    return mult ? launch_warm_form<float, true, false>(&P, nblk, form, stream)
+                : launch_warm_form<float, false, false>(&P, nblk, form,
+                                                        stream);
+  if (!mult)
+    return launch_warm_form<__nv_bfloat16, false, false>(&P, nblk, form,
+                                                         stream);
+  // the bf16 mult form takes its factor table where it fits beside the
+  // replica's part in shared memory
+  return warm_smem(S, C, ts, true, form) <= SMEM_MAX
+             ? launch_warm_form<__nv_bfloat16, true, true>(&P, nblk, form,
+                                                           stream)
+             : launch_warm_form<__nv_bfloat16, true, false>(&P, nblk, form,
+                                                            stream);
 }

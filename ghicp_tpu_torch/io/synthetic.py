@@ -229,6 +229,86 @@ def make_pair(seed: int = 0, n_points: int = 20000,
             T_gt.astype(np.float32))
 
 
+def tls_scan(pts: np.ndarray, origin, rng: np.random.Generator,
+             keep_target: float = 0.5, az_bins: int = 2048,
+             el_bins: int = 512, shadow_slack: float = 1.06) -> np.ndarray:
+    """Simulate a terrestrial-laser scan of surface points ``pts`` from a
+    scanner at ``origin``: range-dependent sampling density and angular
+    occlusion — the two properties of real TLS data the plain synthetic
+    pairs lack (the reference's demo
+    envelope is real ETH/WHU scans, README.md:14-27).
+
+    * **density**: a scanner emits on a fixed angular grid, so surface
+      sample density falls off ~1/r^2.  Points survive with probability
+      (r0/r)^2 where r0 is calibrated so roughly ``keep_target`` of the
+      input survives.
+    * **occlusion**: per (azimuth, elevation) cell only points within
+      ``shadow_slack`` of the nearest return survive — surfaces behind
+      other surfaces vanish, DIFFERENTLY per scan origin.
+
+    Two scans of the same scene from different origins therefore disagree
+    in density, coverage and shadowing — the regime real pairwise TLS
+    registration must survive.
+    """
+    o = np.asarray(origin, np.float32)
+    d = pts - o[None, :]
+    r = np.linalg.norm(d, axis=1) + 1e-6
+    # azimuth/elevation cell per point
+    az = np.arctan2(d[:, 1], d[:, 0])
+    el = np.arcsin(np.clip(d[:, 2] / r, -1, 1))
+    ia = np.clip(((az + np.pi) / (2 * np.pi) * az_bins).astype(np.int64),
+                 0, az_bins - 1)
+    ie = np.clip(((el + np.pi / 2) / np.pi * el_bins).astype(np.int64),
+                 0, el_bins - 1)
+    cell = ia * el_bins + ie
+    # nearest return per cell (shadow map)
+    near = np.full(az_bins * el_bins, np.inf, np.float32)
+    np.minimum.at(near, cell, r)
+    visible = r <= near[cell] * shadow_slack
+    # range falloff: calibrate r0 so E[min((r0/r)^2, 1)] over the visible
+    # set reaches ~keep_target
+    rv = r[visible]
+    r0 = float(np.percentile(rv, 5)) if len(rv) else 1.0
+    for _ in range(30):
+        if np.minimum((r0 / rv) ** 2, 1.0).mean() >= keep_target:
+            break
+        r0 *= 1.15
+    keep = visible & (rng.random(len(pts)) < np.minimum((r0 / r) ** 2, 1.0))
+    return pts[keep]
+
+
+def make_tls_scan_pair(seed: int = 0, n_points: int = 2_000_000,
+                       extent: float = 25.0, rot_deg: float = 25.0,
+                       translation=(2.0, -1.5, 0.3), noise: float = 0.006,
+                       origin_a=(0.0, 0.0, 1.8), origin_b=(10.0, 8.0, 1.8),
+                       keep_target: float = 0.45,
+                       asymmetric_walls: bool = True):
+    """A registration pair of two simulated scans of one scene from two
+    SCAN ORIGINS (range falloff + per-origin shadowing + independent
+    noise), rigidly offset — much closer to the reference's ETH/WHU demo
+    regime than shared-density noise pairs.  Returns (src, tgt, T_gt).
+
+    Scan pairs default to the de-symmetrized scene: at high densities the
+    congruent-wall scene's ~90-degree wall-swap mode can beat the true
+    pose in RANSAC consensus (a generator artifact, NOTES round 4)."""
+    rng = np.random.default_rng(seed)
+    pts = structured_scene(rng, n_points, extent=extent,
+                           asymmetric_walls=asymmetric_walls)
+    scan_a = tls_scan(pts, origin_a, rng, keep_target=keep_target)
+    scan_b = tls_scan(pts, origin_b, rng, keep_target=keep_target)
+    th = np.deg2rad(rot_deg)
+    R = np.array([[np.cos(th), -np.sin(th), 0],
+                  [np.sin(th), np.cos(th), 0], [0, 0, 1]], np.float32)
+    t = np.asarray(translation, np.float32)
+    T_gt = np.eye(4, dtype=np.float32)
+    T_gt[:3, :3] = R
+    T_gt[:3, 3] = t
+    src = ((scan_a - t) @ R
+           + rng.normal(0, noise, scan_a.shape)).astype(np.float32)
+    tgt = (scan_b + rng.normal(0, noise, scan_b.shape)).astype(np.float32)
+    return src, tgt, T_gt
+
+
 def bench_pair(n_points: int = 800_000, extent: float = 25.0, seed: int = 7):
     """The TLS-scale benchmark pair: one scene, independent 6 mm noise on
     each cloud, a 20-degree yaw and a (2, -1.5, 0.3) m shift.  Returns

@@ -9,7 +9,8 @@ count under their own ``*_mult`` names, the float32 variants of K1-K3
 feature-"none" variant under ``stream_sweep_none`` and its column-side
 variants under ``*_col``; each K5 launch also counts under
 ``<name>@<rows>``, the rows it swept, so that full-height and compacted
-sweeps can be told apart, and each K4 launch under ``nms_exact@<slots>``.
+sweeps can be told apart, each K4 launch under ``nms_exact@<slots>`` and
+each K1, K2 and K3 launch under ``<name>@<rows>``, its keypoint slots.
 """
 from __future__ import annotations
 

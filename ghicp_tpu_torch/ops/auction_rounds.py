@@ -43,7 +43,6 @@ from ghicp_tpu_torch.ops.cost_kernel import (_f32, _factors, factor_cost,
 
 NEG = -3.0e38
 _BIG = 2**31 - 1
-MAX_TILES = 1024
 TRACE_SWEEPS = 30      # K3's trace: active tiles of at most this many sweeps
 PART_MAX = 16          # K3: most column parts of one Gauss-Seidel row
 _SMEM_MAX = 232448     # shared memory a block may take on this card
@@ -76,35 +75,45 @@ def gs_smem_bytes(S: int, C: int, ts: int, form: int = 0) -> int:
 def gs_replica_form(S: int, C: int, ts: int) -> int:
     """K2's replica form at this shape (``csrc/auction.cu::gs_phase_form``):
     the first of 0, 1, 2 (:func:`gs_smem_bytes`) that fits a block's shared
-    memory (0 to about 23,500 slots, 1 to about 42,000); -1 no form (more
-    than 512 rows a tile or MAX_TILES tiles)."""
-    if ts > 512 or S // ts > MAX_TILES:
+    memory (0 to about 23,500 slots, 1 to about 42,000, 2 past that); -1
+    no form (more than 512 rows a tile, or a tile scratch past a block's
+    shared memory even in form 2).  The tile count has no cap of its own:
+    the tile counts and list take 8 bytes a tile of that scratch."""
+    if ts > 512:
         return -1
-    return next((f for f in (0, 1) if gs_smem_bytes(S, C, ts, f)
-                 <= _SMEM_MAX), 2)
+    return next((f for f in (0, 1, 2) if gs_smem_bytes(S, C, ts, f)
+                 <= _SMEM_MAX), -1)
 
 
-def warm_smem_bytes(S: int, C: int, ts: int, lut: bool = False) -> int:
-    """K3's dynamic shared memory a block (``csrc/auction.cu::warm_smem``):
-    the larger of sweep 0's staging (two buffers of six 1024-column
-    arrays) and the Gauss-Seidel sweeps' (:func:`gs_smem_bytes`, with the
-    replica), plus the mult form's FD factor table with ``lut``."""
+def warm_smem_bytes(S: int, C: int, ts: int, lut: bool = False,
+                    form: int = 0) -> int:
+    """K3's dynamic shared memory a block in replica form ``form``
+    (``csrc/auction.cu::warm_smem``): the larger of sweep 0's staging (two
+    buffers of six 1024-column arrays) and the Gauss-Seidel sweeps'
+    (:func:`gs_smem_bytes`, with the replica's part in shared memory),
+    plus the mult form's FD factor table with ``lut``."""
     stage = 2 * 6 * 1024 * 4
-    return max(stage, gs_smem_bytes(S, C, ts, 0)) + (_LUT_BYTES if lut
-                                                      else 0)
+    return max(stage, gs_smem_bytes(S, C, ts, form)) + (_LUT_BYTES if lut
+                                                         else 0)
 
 
-def warm_kernel_fits(S: int, C: int, ts: int) -> bool:
-    """Whether K3 can run at this shape: its replica fits a block's shared
-    memory and a tile has at most 512 rows (one thread a row in the
-    resolve).  Larger engines take the K1 + K2 solve instead."""
-    return ts <= 512 and warm_smem_bytes(S, C, ts) <= _SMEM_MAX
+def warm_replica_form(S: int, C: int, ts: int) -> int:
+    """K3's replica form at this shape
+    (``csrc/auction.cu::warm_fused_form``): the first of 0, 1, 2 whose
+    shared memory without the mult form's table fits a block (as
+    :func:`gs_replica_form`); -1 none."""
+    if ts > 512:
+        return -1
+    return next((f for f in (0, 1, 2) if warm_smem_bytes(S, C, ts, False, f)
+                 <= _SMEM_MAX), -1)
 
 
 def warm_table_fits(S: int, C: int, ts: int) -> bool:
     """Whether K3's bf16 mult form keeps its FD factor table in shared
-    memory at this shape (else it computes expf / logf an entry)."""
-    return warm_smem_bytes(S, C, ts, lut=True) <= _SMEM_MAX
+    memory beside the shape's replica form (else it computes expf / logf
+    an entry)."""
+    form = warm_replica_form(S, C, ts)
+    return form >= 0 and warm_smem_bytes(S, C, ts, True, form) <= _SMEM_MAX
 
 
 def escalation_schedule(max_rounds: int, esc_after: int,
@@ -431,10 +440,12 @@ def _lib():
         lib.gs_phase_smem.argtypes = [_I, _I, _I, _I]
         lib.gs_phase_smem.restype = ctypes.c_size_t
         lib.warm_fused.argtypes = ([_VP, _I, _I] + [_VP] * 11 + [_F] * 5
-                                   + [_I] * 4 + [_VP] * 18)
+                                   + [_I] * 4 + [_VP] * 20 + [_I, _I, _VP])
         lib.warm_fused.restype = _I
-        lib.warm_fused_smem.argtypes = [_I, _I, _I, _I]
+        lib.warm_fused_smem.argtypes = [_I, _I, _I, _I, _I]
         lib.warm_fused_smem.restype = ctypes.c_size_t
+        lib.warm_fused_form.argtypes = [_I, _I, _I]
+        lib.warm_fused_form.restype = _I
         lib._typed = True
     return lib
 
@@ -452,9 +463,23 @@ def _jacobi_lib():
 
 
 def _check_shapes(S, C, ts, what):
-    if S % ts or C % 128 or S // ts > MAX_TILES:
-        raise ValueError(f"{what}: needs S % ts == 0, C % 128 == 0 and at "
-                         f"most {MAX_TILES} tiles (S={S}, C={C}, ts={ts})")
+    if S % ts or C % 128:
+        raise ValueError(f"{what}: needs S % ts == 0 and C % 128 == 0 "
+                         f"(S={S}, C={C}, ts={ts})")
+
+
+def _replica_scratch(dev, S: int, C: int, form: int):
+    """(blocks, (prices, owners, open flags)) of the replica's global
+    slices, one a block, in replica form ``form`` (None where the form
+    keeps that array in shared memory)."""
+    if form == 0:
+        return 0, (None, None, None)
+    nblk = (torch.cuda.get_device_properties(dev).multi_processor_count
+            if dev.type == "cuda" else 1)
+    e = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)
+    return nblk, (e((nblk, C), torch.float32) if form > 1 else None,
+                  e((nblk, C), torch.int32),
+                  e((nblk, S), torch.uint8) if form > 1 else None)
 
 
 class GsScratch:
@@ -473,8 +498,8 @@ class GsScratch:
         fit = gs_replica_form(S, C, ts)
         if fit < 0:
             raise ValueError(f"auction_phase_gs: S={S}, C={C}, ts={ts}: "
-                             f"more than 512 rows a tile or {MAX_TILES} "
-                             "tiles")
+                             "more than 512 rows a tile, or the tile "
+                             "scratch exceeds a block's shared memory")
         self.form = fit if form is None else int(form)
         if not fit <= self.form <= 2:
             raise ValueError(f"auction_phase_gs: replica form {form} at "
@@ -483,15 +508,7 @@ class GsScratch:
         self.part = e((2 * ts * PART_MAX * 3,), torch.float32)
         self.trace = torch.zeros((3 + TRACE_SWEEPS,), dtype=torch.int32,
                                  device=self.dev)
-        self.nblk = 0
-        rep = (None, None, None)
-        if self.form > 0:
-            self.nblk = (torch.cuda.get_device_properties(
-                self.dev).multi_processor_count
-                         if self.dev.type == "cuda" else 1)
-            rep = (e((self.nblk, C), torch.float32) if self.form > 1
-                   else None, e((self.nblk, C), torch.int32),
-                   e((self.nblk, S), torch.uint8) if self.form > 1 else None)
+        self.nblk, rep = _replica_scratch(self.dev, S, C, self.form)
         self.replica = rep
         if self.dev.type == "cuda":
             lib = _lib()
@@ -567,7 +584,9 @@ def auction_phase_gs_cuda(b, p0, owner0, sunk0, open0, eps, sink,
         sunk.data_ptr(), gcol.data_ptr(), rounds.data_ptr(), *scratch.ptrs,
         scratch.nblk, scratch.form, torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "auction_phase_gs launch")
-    count_launch("auction_phase_gs_f32" if f32_mat else "auction_phase_gs")
+    name = "auction_phase_gs_f32" if f32_mat else "auction_phase_gs"
+    count_launch(name)
+    count_launch(f"{name}@{S}")
     return p, owner, sunk, rounds.view(()), gcol
 
 
@@ -599,15 +618,26 @@ class WarmInputs:
     rows ``kt_rows`` [C, 4] (x, y, z, |t|^2) and, for the kernel, ``kt``
     [5, C] (those columns and the target mask as 0 / 1); the escalation
     tables by (budget, esc_after, esc_period); on the card the kernel's
-    scratch.  The scratch serves one launch at a time, on one stream.
+    scratch, with the replica's global slices in replica forms 1 and 2
+    (:func:`warm_replica_form`; ``form`` forces a larger one).  The
+    scratch serves one launch at a time, on one stream.
     After each call ``trace`` holds [rows open after the keep test, sweeps,
     rows scanned in the sweeps after round 0, active tiles of sweep 1, 2,
     ...] (up to ``TRACE_SWEEPS`` sweeps)."""
 
-    def __init__(self, kp_t, fd, mask_s, mask_t, ts: int):
+    def __init__(self, kp_t, fd, mask_s, mask_t, ts: int, form=None):
         S, C = fd.shape
         dev = fd.device
         self.ts = int(ts)
+        fit = warm_replica_form(S, C, self.ts)
+        if fit < 0:
+            raise ValueError(f"auction_warm_fused: S={S}, C={C}, ts={ts}: "
+                             "more than 512 rows a tile, or the tile "
+                             "scratch exceeds a block's shared memory")
+        self.form = fit if form is None else int(form)
+        if not fit <= self.form <= 2:
+            raise ValueError(f"auction_warm_fused: replica form {form} at "
+                             f"S={S}, C={C} (the shape's own is {fit})")
         self.fd = fd.contiguous()
         self.mask_s = as_rows(mask_s, S, 0, torch.bool, dev, "mask_s")
         self.mask_t = as_rows(mask_t, C, 0, torch.bool, dev, "mask_t")
@@ -620,17 +650,21 @@ class WarmInputs:
         self.scratch = None
         if dev.type == "cuda":
             _check_shapes(S, C, self.ts, "auction_warm_fused")
-            if not warm_kernel_fits(S, C, self.ts):
-                raise ValueError(f"auction_warm_fused: S={S}, C={C}, "
-                                 f"ts={ts} exceed a block's shared memory "
-                                 "or 512 rows a tile")
+            lib = _lib()
+            got = lib.warm_fused_form(S, C, self.ts)
+            if got != fit:
+                raise RuntimeError(f"auction_warm_fused: the kernel's "
+                                   f"replica form {got}, warm_replica_form "
+                                   f"says {fit}")
             for lut in (False, True):
-                got = _lib().warm_fused_smem(S, C, self.ts, int(lut))
-                if got != warm_smem_bytes(S, C, self.ts, lut):
-                    raise RuntimeError(
-                        f"auction_warm_fused: the kernel takes {got} bytes "
-                        f"of shared memory, warm_smem_bytes says "
-                        f"{warm_smem_bytes(S, C, self.ts, lut)}")
+                for f in (0, 1, 2):
+                    got = lib.warm_fused_smem(S, C, self.ts, int(lut), f)
+                    want = warm_smem_bytes(S, C, self.ts, lut, f)
+                    if got != want:
+                        raise RuntimeError(
+                            f"auction_warm_fused: the kernel takes {got} "
+                            f"bytes of shared memory in form {f}, "
+                            f"warm_smem_bytes says {want}")
             self.f32 = _matrix_dtype(self.fd, "auction_warm_fused")
             e = lambda n, dt: torch.empty((n,), dtype=dt, device=dev)
             i32, f32 = torch.int32, torch.float32
@@ -643,9 +677,13 @@ class WarmInputs:
                 e(2 * self.ts * PART_MAX * 3, f32),                 # part
                 torch.full((1,), _NEG_KEY, dtype=i32, device=dev),  # bmax
                 torch.zeros((1,), dtype=i32, device=dev))           # cnt
+            self.nblk, rep = _replica_scratch(dev, S, C, self.form)
+            self.replica = rep
             # the launch's fixed pointers, read once
             self.ptrs = tuple(x.data_ptr() for x in (
                 self.fd, self.kt, self.mask_s, *self.scratch, self.trace))
+            self.rep_ptrs = tuple(0 if x is None else x.data_ptr()
+                                  for x in rep)
 
     def schedule(self, max_rounds: int, esc_after: int, esc_period: int):
         """The escalation table on this run's device, made once a key."""
@@ -702,11 +740,13 @@ def auction_warm_fused_cuda(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
         sink.data_ptr(), dpen.data_ptr(), wed, wfd, scale, eps_abs, rel_eps,
         int(max_rounds), S, C, ts, p.data_ptr(), owner.data_ptr(),
         sunk.data_ptr(), gcol.data_ptr(), rounds.data_ptr(),
-        stats.data_ptr(), *scratch,
+        stats.data_ptr(), *scratch, *prep.rep_ptrs, prep.nblk, prep.form,
         torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "auction_warm_fused launch")
-    count_launch("auction_warm_fused" + ("_mult" if mult_blend else "")
-                 + ("_f32" if prep.f32 else ""))
+    name = ("auction_warm_fused" + ("_mult" if mult_blend else "")
+            + ("_f32" if prep.f32 else ""))
+    count_launch(name)
+    count_launch(f"{name}@{S}")
     return p, owner, sunk, rounds[0], gcol, stats
 
 

@@ -213,8 +213,10 @@ def fused_benefit_cuda(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale,
         v1.data_ptr(), vsel.data_ptr(), st.data_ptr(), *scratch,
         torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "fused_benefit launch")
-    count_launch("fused_benefit" + ("_mult" if mult_blend else "")
-                 + ("_f32" if f32_mat else ""))
+    name = ("fused_benefit" + ("_mult" if mult_blend else "")
+            + ("_f32" if f32_mat else ""))
+    count_launch(name)
+    count_launch(f"{name}@{S}")
     return (b, *st.unbind(), v1, vsel)
 
 

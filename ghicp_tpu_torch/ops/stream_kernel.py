@@ -77,7 +77,7 @@ DESC_TM = 4     # its rows a thread
 DESC_TN = 4     # its columns a thread takes at once
 DESC_PASS = 32  # its columns a pass
 PLAIN_TC = 1024
-_KERNEL_SHAPES = {(1, 14), (2, 14), (4, 14)}    # (V, W) instantiated
+KERNEL_MAX_VARIANTS = 28   # ham_kernel at V = 1, 2, 4; hamg_kernel to 28
 BIT_ROW = 448   # unpacked bits a row: 14 words of 32
 _M32 = 0xFFFFFFFF
 
@@ -377,7 +377,7 @@ def _lib():
     from ghicp_tpu_torch.ops._build import cuda_library
     lib = cuda_library("stream")
     if not getattr(lib, "_typed", False):
-        lib.stream_sweep_tiled.argtypes = ([_I] + [_VP] * 9 + [_I] * 2
+        lib.stream_sweep_tiled.argtypes = ([_I] + [_VP] * 10 + [_I] * 2
                                            + [_VP] * 4 + [_F] * 3
                                            + [_I] * 6 + [_VP] * 13)
         lib.stream_sweep_tiled.restype = _I
@@ -516,13 +516,16 @@ def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
         target = sweep_target(kp_t, feats, mask_t)
     else:
         check_target(target, kp_t, feats, mask_t)
-    bs = na = fs = None
+    bs = ws = na = fs = None
     V = D = F = 0
     if lane == 1:
         V, _, W = feats.words_s.shape
-        if (V, W) not in _KERNEL_SHAPES:
-            raise ValueError(f"stream_sweep kernel: (V, W) = ({V}, {W}) not "
-                             f"in {sorted(_KERNEL_SHAPES)}")
+        if W != BIT_ROW // 32 or not 1 <= V <= KERNEL_MAX_VARIANTS:
+            raise ValueError(f"stream_sweep kernel: (V, W) = ({V}, {W}); "
+                             f"it takes W = {BIT_ROW // 32} and 1 <= V <= "
+                             f"{KERNEL_MAX_VARIANTS}")
+        ws = as_rows(feats.words_s.reshape(V * S, W), V * S, W, torch.int32,
+                     dev, "words_s")
         bs = feats.bits_s.to(device=dev, dtype=torch.int8).contiguous()
         if tuple(bs.shape) != (V, S, BIT_ROW):
             raise ValueError(f"bits_s: expected {(V, S, BIT_ROW)}, got "
@@ -557,7 +560,7 @@ def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
     fb, jb = vf.data_ptr(), vj.data_ptr()
     pfb, pjb = pf.data_ptr(), pj.data_ptr()
     rc = _lib().stream_sweep_tiled(
-        lane, ad(ks), ad(target.kt), ad(bs),
+        lane, ad(ks), ad(target.kt), ad(bs), ad(ws),
         ad(target.rows if lane == 1 else None), ad(target.wt), ad(na),
         ad(target.nb), ad(fs), ad(target.rows if lane == 2 else None), D, F,
         ad(ms), ad(target.mt), ad(p), ad(ac), float(wed), float(wfd),

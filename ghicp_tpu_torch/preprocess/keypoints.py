@@ -3,6 +3,10 @@ refinement.
 
 * ``prune_unstable`` keeps points with l2/l1 < t, l3/l2 < t and more than
   ``min_neighbors`` neighbors.
+* ``refine_positions`` (centroid) and ``refine_positions_corner``
+  (tangent-plane intersection) move a keypoint below the voxel size;
+  ``adaptive_detect`` re-tunes the stability ratio until the keypoint
+  count lands in [keypoints_min, keypoints_max].
 * ``non_max_suppression`` is the parallel fixed point of greedy
   suppression by curvature: each round every alive candidate that beats
   (curvature desc, index asc) every alive candidate within the radius is
@@ -136,6 +140,62 @@ def refine_positions(kp_xyz, kp_mask, cand_cloud: PointCloud,
     return torch.where(ok[:, None], centroid, kp_xyz)
 
 
+CORNER_CHUNK = 2048   # keypoints a corner solve batch (3x3 solves, float32)
+
+
+def refine_positions_corner(kp_xyz, kp_mask, cloud: PointCloud,
+                            feats: PCAFeatures, radius: float, k: int = 96,
+                            cell_cap: int = 32, chunk: int = 2048,
+                            anchor: float = 0.05):
+    """Plane-intersection keypoint localization: x* = argmin_x sum_i w_i
+    (n_i^T (x - p_i))^2 + lam |x - kp|^2 over the surface neighbours p_i
+    within ``radius`` with PCA normals n_i (the least-squares intersection
+    of the local tangent planes: a 3-plane corner's vertex; on a crease
+    the anchor pins the along-edge direction, on a flat surface the
+    keypoint).  Weights: planarity (l2 - l3) / l1, divided by the weight
+    pointing the same way ((n_i . n_j)^8), so each plane direction counts
+    about once; three re-anchored solves x <- (A + lam I)^-1 (b + lam x)
+    in float32, batched CORNER_CHUNK keypoints at a time; a keypoint never
+    leaves its query ball.  Normals enter squared, so their signs do not
+    matter."""
+    query = PointCloud(xyz=kp_xyz, mask=kp_mask)
+    nb = radius_neighbors(query, cloud, radius=radius, k=k,
+                          cell_cap=cell_cap,
+                          chunk=min(chunk, kp_xyz.shape[0]))
+    out = []
+    eye = torch.eye(3, dtype=torch.float32, device=kp_xyz.device)
+    for s in range(0, kp_xyz.shape[0], CORNER_CHUNK):
+        sl = slice(s, s + CORNER_CHUNK)
+        idx, valid, kp = nb.idx[sl], nb.valid[sl], kp_xyz[sl]
+        n = feats.normal[idx]                           # [s, K, 3]
+        p = cloud.xyz[idx]
+        ev = feats.eigvals[idx]
+        planarity = (ev[..., 1] - ev[..., 2]) / torch.clamp(ev[..., 0],
+                                                            min=1e-30)
+        w = torch.where(valid & feats.valid[idx],
+                        torch.clamp(planarity, 0.0, 1.0), 0.0)
+        sim = torch.einsum("ski,sli->skl", n, n) ** 2   # [s, K, K]
+        dens = torch.einsum("skl,sl->sk", sim ** 4, w)
+        del sim
+        w = w / torch.clamp(dens, min=1e-6)
+        A = torch.einsum("sk,ski,skj->sij", w, n, n)
+        ndp = (n * p).sum(dim=-1)
+        b = torch.einsum("sk,sk,ski->si", w, ndp, n)
+        lam = anchor * torch.clamp(A.diagonal(dim1=-2, dim2=-1).sum(-1),
+                                   min=1e-6)[:, None]
+        A = A + lam[..., None] * eye
+        x = kp
+        for _ in range(3):
+            x = torch.linalg.solve(A, b + lam * x)
+        d = x - kp
+        dist = torch.linalg.norm(d, dim=-1, keepdim=True)
+        x = kp + d * torch.clamp(radius / torch.clamp(dist, min=1e-12),
+                                 max=1.0)
+        ok = kp_mask[sl] & (w.sum(dim=1) > 1e-6)
+        out.append(torch.where(ok[:, None], x, kp))
+    return torch.cat(out)
+
+
 def detect_keypoints(cloud: PointCloud, config: GHICPConfig,
                      feats: PCAFeatures | None = None) -> KeypointResult:
     """PCA -> stability pruning -> NMS over the compacted candidates."""
@@ -173,3 +233,39 @@ def compact_candidates(cloud: PointCloud, feats: PCAFeatures, candidates):
     cmask = candidates[sel]
     return (PointCloud(xyz=cloud.xyz[sel], mask=cmask),
             torch.where(cmask, feats.curvature[sel], 0.0))
+
+
+def adaptive_detect(cloud: PointCloud, config: GHICPConfig) -> KeypointResult:
+    """Adaptive threshold re-tuning (the reference's
+    keypointDetectionBasedOnCurvature_adaptive, keypoint_detect.hpp:53-111,
+    a host loop): above ``keypoints_max`` keypoints the stability ratio
+    drops by 0.05 and prune + NMS (over the whole cloud) run again, until
+    the count lands in [keypoints_min, keypoints_max], a count below the
+    band raises the ratio once by 0.025 and stops, or the ratio falls
+    under 0.65."""
+    feats = pca_features(cloud, radius=config.neighborhood_radius,
+                         cell_cap=config.pca_cell_cap,
+                         max_cells=config.pca_max_cells)
+    ratio = config.unstable_ratio_threshold
+    result = detect_keypoints(cloud, config, feats)
+    count = int(result.mask.sum())
+    if count <= config.keypoints_max:
+        return result
+    finish = False
+    while ((count < config.keypoints_min or count > config.keypoints_max)
+           and not finish and ratio >= 0.65):
+        if count < config.keypoints_min:
+            ratio += 0.025
+            finish = True
+        else:
+            ratio -= 0.05
+        candidates = prune_unstable(feats, ratio, config.min_neighbors)
+        selected, rounds = non_max_suppression(
+            cloud, feats.curvature, candidates,
+            radius=config.non_max_radius, k=config.nms_k,
+            cell_cap=config.nms_cell_cap, chunk=1024)
+        result = KeypointResult(mask=selected, candidates=candidates,
+                                rounds=rounds, bucket=cloud.capacity,
+                                path=nms_path(cloud.capacity))
+        count = int(selected.sum())
+    return result

@@ -6,6 +6,9 @@
   quaternion power iteration whose start vector can pick the wrong
   eigenvector near 180 degrees; the SVD has no such blind spot.)
 * :func:`yaw_4dof` — closed-form leveled (yaw-only) estimate.
+* :func:`similarity_2d_4p` / :func:`similarity_3d_7p` — the weighted
+  linear least-squares similarity transforms of the reference's
+  ``CSTRAN_4DOF`` / ``CSTRAN_7DOF`` (common_reg.cpp:425-617), in float32.
 
 Both take padded correspondence tensors plus a weight vector, with any
 leading batch axes (the batched engine's pair axis); an all-zero weight
@@ -68,6 +71,46 @@ def yaw_4dof(src: torch.Tensor, dst: torch.Tensor,
     R = tf.rotz(torch.atan2(num, den)).to(torch.float32)
     t = cd - (R @ cs[..., None])[..., 0]
     return _or_identity(tf.from_rt(R, t), wsum)
+
+
+def _weighted_lls(A: torch.Tensor, b: torch.Tensor,
+                  ww: torch.Tensor) -> torch.Tensor:
+    """The solution of (A^T W A + 1e-9 I) x = A^T W b (float32)."""
+    AtA = A.T @ (A * ww[:, None])
+    Atb = A.T @ (b * ww)
+    eye = torch.eye(A.shape[1], dtype=A.dtype, device=A.device)
+    return torch.linalg.solve(AtA + 1e-9 * eye, Atb)
+
+
+def similarity_2d_4p(src_xy: torch.Tensor, dst_xy: torch.Tensor,
+                     weights: torch.Tensor) -> torch.Tensor:
+    """2D 4-parameter similarity (tx, ty, scale, yaw) by weighted linear
+    least squares: x' = a x - b y + tx, y' = b x + a y + ty, scale =
+    hypot(a, b).  Returns [tx, ty, s, sin, cos]."""
+    w = weights.to(torch.float32)
+    x, y = src_xy[:, 0], src_xy[:, 1]
+    zeros, ones = torch.zeros_like(x), torch.ones_like(x)
+    A = torch.cat([torch.stack([ones, zeros, x, -y], dim=1),
+                   torch.stack([zeros, ones, y, x], dim=1)])
+    b = torch.cat([dst_xy[:, 0], dst_xy[:, 1]])
+    tx, ty, a, bb = _weighted_lls(A, b, torch.cat([w, w]))
+    s = torch.sqrt(a * a + bb * bb)
+    return torch.stack([tx, ty, s, bb / s, a / s])
+
+
+def similarity_3d_7p(src: torch.Tensor, dst: torch.Tensor,
+                     weights: torch.Tensor) -> torch.Tensor:
+    """Linearized (small-angle) 7-parameter 3D similarity by weighted
+    linear least squares: [tx, ty, tz, rx, ry, rz, scale]."""
+    w = weights.to(torch.float32)
+    x, y, z = src[:, 0], src[:, 1], src[:, 2]
+    zeros, ones = torch.zeros_like(x), torch.ones_like(x)
+    A = torch.cat([torch.stack([ones, zeros, zeros, zeros, -z, y, x], dim=1),
+                   torch.stack([zeros, ones, zeros, z, zeros, -x, y], dim=1),
+                   torch.stack([zeros, zeros, ones, -y, x, zeros, z],
+                               dim=1)])
+    b = torch.cat([dst[:, 0], dst[:, 1], dst[:, 2]])
+    return _weighted_lls(A, b, torch.cat([w, w, w]))
 
 
 def estimate(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor,

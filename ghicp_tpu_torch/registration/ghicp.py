@@ -75,8 +75,7 @@ from ghicp_tpu_torch.matching.stream_auction import (StreamCarry, carry_init,
                                                      stream_solve)
 from ghicp_tpu_torch.ops.auction_rounds import (WarmInputs,
                                                 auction_warm_fused,
-                                                gs_tile_rows,
-                                                warm_kernel_fits)
+                                                gs_tile_rows)
 from ghicp_tpu_torch.ops.cost_kernel import (CostTarget, fused_benefit,
                                              mult_cost)
 from ghicp_tpu_torch.ops.stream_kernel import (stream_selected, stream_sweep,
@@ -150,6 +149,21 @@ def _f32(x) -> float:
 
 
 MULT_FEATURES = (FeatureType.FPFH, FeatureType.ROPS)
+
+
+def warm_gate(S: int, T: int, config: GHICPConfig) -> bool:
+    """Whether a dense engine of S x T keypoint slots takes the warm fused
+    kernel K3 from its third iteration on: the JAX package's gate
+    (``ghicp_tpu/registration/ghicp.py``, ``use_warm_kernel``), whose
+    shape terms reach 131,072 columns through the tile height (K3 picks
+    the replica form that fits a block, ``warm_replica_form``)."""
+    ts = gs_tile_rows(T)
+    return bool(config.warm_fused_kernel
+                and config.feature in (FeatureType.BSC,) + MULT_FEATURES
+                and config.auction_round_kernel
+                and config.auction_phases == 1
+                and S % ts == 0 and S >= 1024 and T >= 1024
+                and ts * T <= 256 * 8192)
 
 
 def blend_weights(it_eff: float, config: GHICPConfig):
@@ -331,14 +345,7 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
                            st.para1, st.para2, scale_t, _f(wed, dev),
                            _f(wfd, dev), config.penalty_initial)
     ts_gs = gs_tile_rows(T)
-    # K3 keeps a replica of the prices, owners and open flags in each
-    # block's shared memory: an engine too large for it takes full_solve
-    use_warm_kernel = (not use_stream and config.warm_fused_kernel
-                       and (bsc or mult) and config.auction_round_kernel
-                       and config.auction_phases == 1
-                       and S % ts_gs == 0 and S >= 1024 and T >= 1024
-                       and ts_gs * T <= 256 * 8192
-                       and warm_kernel_fits(S, T, ts_gs))
+    use_warm_kernel = not use_stream and warm_gate(S, T, config)
     # what every warm solve of this run reads unchanged (target factors,
     # masks, FD, the kernel's scratch), made once here
     warm_in = (WarmInputs(kp_t_c, fd_b, mask_s, mask_t, ts_gs)

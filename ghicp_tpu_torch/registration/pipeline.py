@@ -13,8 +13,12 @@ distances alone: a zero FD); on two lanes: the dense lane builds the
 the standardized descriptor rows as factors (for none: no factors at all)
 and never builds an [S, T] tensor.  RANSAC draws its candidates from the
 features (1 - FD for a similarity); only BSC gives it local frames;
-feature none has no coarse init (start it with ``initial_transform``).
-The options the port does not carry yet raise ``NotImplementedError``.
+feature none has no coarse init (start it with ``initial_transform``,
+or with ``identity_hypotheses > 1`` from schedule-shifted identity starts
+picked by geometric consensus, RANSAC as the fallback).  Options:
+adaptive keypoint counts, corner refinement, localization-aware BSC
+(``bsc_offsets``: source encodings at small offsets stacked on the
+variant axis) and 4-DoF (yaw-only) estimation.
 """
 from __future__ import annotations
 
@@ -42,9 +46,11 @@ from ghicp_tpu_torch.ops.stream_kernel import (NoFeatures,
                                                make_stream_features,
                                                stream_feature_candidates,
                                                subset_rows)
-from ghicp_tpu_torch.preprocess.keypoints import (compact_candidates,
+from ghicp_tpu_torch.preprocess.keypoints import (adaptive_detect,
+                                                  compact_candidates,
                                                   detect_keypoints,
-                                                  refine_positions)
+                                                  refine_positions,
+                                                  refine_positions_corner)
 from ghicp_tpu_torch.preprocess.pca import pca_features_pair
 from ghicp_tpu_torch.preprocess.voxel import voxel_downsample
 from ghicp_tpu_torch.registration.ghicp import (MULT_FEATURES, GHICPResult,
@@ -111,15 +117,39 @@ def _morton_order_rows(xyz: torch.Tensor, mask: torch.Tensor):
     return torch.sort(code, stable=True).indices
 
 
-def _check_supported(config: GHICPConfig) -> None:
-    if config.adaptive_keypoints:
-        raise NotImplementedError("adaptive_keypoints is not ported yet")
-    if config.identity_hypotheses > 1:
-        raise NotImplementedError("identity_hypotheses > 1 is not ported yet")
-    if config.refine_keypoints and config.refine_method != "centroid":
-        raise NotImplementedError("only refine_method='centroid' is ported")
-    if config.bsc_offsets > 1:
-        raise NotImplementedError("bsc_offsets > 1 is not ported yet")
+# localization-aware BSC: the source re-encoded at up to six offsets of
+# bsc_offset_delta (or half the voxel) along the axes
+BSC_OFFSETS = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1),
+               (0, 0, -1))
+
+
+def offset_encodings(ds: PointCloud, kp_s, kp_s_mask, fs,
+                     config: GHICPConfig):
+    """``fs`` with the source keypoints' BSC re-encoded at the first
+    ``bsc_offsets - 1`` offsets, the packed words stacked on the variant
+    axis ([bsc_offsets * V, S, W]): the min-over-variants Hamming FD then
+    searches over the detector's localization error.  The frames stay the
+    unshifted encoding's; the target stays single."""
+    delta = config.bsc_offset_delta or 0.5 * config.voxel_size
+    offs = torch.tensor(BSC_OFFSETS, dtype=torch.float32,
+                        device=kp_s.device) * delta
+    packs = [fs.packed]
+    for o in offs[:config.bsc_offsets - 1]:
+        packs.append(extract_bsc(ds, kp_s + o, kp_s_mask, config,
+                                 num_variants=config.bsc_num_variants).packed)
+    return fs._replace(packed=torch.cat(packs, dim=0))
+
+
+def consensus_score(T, kp_sub, mask_sub, kp_t, mask_t, tau: float) -> int:
+    """Source keypoints (the strided subset ``kp_sub``) with a target
+    keypoint within ``tau`` under ``T``: the identity hypotheses' selector.
+    The cross term is a float32 product (no TF32: at 25 m coordinates a
+    reduced-precision cross term reads noise at the sub-voxel tau)."""
+    p = kp_sub @ T[:3, :3].T + T[:3, 3]
+    d2 = ((p * p).sum(dim=1)[:, None] + (kp_t * kp_t).sum(dim=1)[None, :]
+          - 2.0 * torch.matmul(p, kp_t.T))
+    d2 = torch.where(mask_t[None, :], d2, torch.inf).amin(dim=1)
+    return int(((d2 < tau * tau) & mask_sub).sum())
 
 
 @contextlib.contextmanager
@@ -142,7 +172,6 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
     """Register ``source`` onto ``target`` (raw [n, 3] arrays) on
     ``device`` (the card by default; ``"cpu"`` runs the plain versions)."""
     dev = resolve_device(device)
-    _check_supported(config)
     timings: Dict[str, float] = {}
     with _stage("downsample", timings, dev):
         cs = PointCloud.from_points(source_pts, device=dev)
@@ -158,11 +187,19 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
         bbx = float(cloud_bounds(ds).magnitude)
 
     with _stage("keypoints", timings, dev):
-        fs_pca, ft_pca = pca_features_pair(
-            ds, dt, radius=config.neighborhood_radius,
-            cell_cap=config.pca_cell_cap, max_cells=config.pca_max_cells)
-        rs = detect_keypoints(ds, config, fs_pca)
-        rt = detect_keypoints(dt, config, ft_pca)
+        fs_pca = ft_pca = None
+        if config.adaptive_keypoints:
+            # (no refinement below: the JAX package's adaptive path keeps
+            # its PCA to itself)
+            rs = adaptive_detect(ds, config)
+            rt = adaptive_detect(dt, config)
+        else:
+            fs_pca, ft_pca = pca_features_pair(
+                ds, dt, radius=config.neighborhood_radius,
+                cell_cap=config.pca_cell_cap,
+                max_cells=config.pca_max_cells)
+            rs = detect_keypoints(ds, config, fs_pca)
+            rt = detect_keypoints(dt, config, ft_pca)
         mask_s_np, mask_t_np = rs.mask.cpu().numpy(), rt.mask.cpu().numpy()
         nks, nkt = int(mask_s_np.sum()), int(mask_t_np.sum())
         cap = keypoint_capacity or config.keypoint_capacity or bucket_size(
@@ -176,12 +213,20 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
         kp_s_idx, kp_s_mask = kp_s_idx[so], kp_s_mask[so]
         kp_s = ds.xyz[kp_s_idx]
         kp_t = dt.xyz[kp_t_idx]
-        if config.refine_keypoints:
+        if config.refine_keypoints and fs_pca is not None:
             rr = config.refine_radius or 3.0 * config.voxel_size
-            cc_s, curv_s = compact_candidates(ds, fs_pca, rs.candidates)
-            cc_t, curv_t = compact_candidates(dt, ft_pca, rt.candidates)
-            kp_s = refine_positions(kp_s, kp_s_mask, cc_s, curv_s, radius=rr)
-            kp_t = refine_positions(kp_t, kp_t_mask, cc_t, curv_t, radius=rr)
+            if config.refine_method == "corner":
+                kp_s = refine_positions_corner(kp_s, kp_s_mask, ds, fs_pca,
+                                               radius=rr)
+                kp_t = refine_positions_corner(kp_t, kp_t_mask, dt, ft_pca,
+                                               radius=rr)
+            else:
+                cc_s, curv_s = compact_candidates(ds, fs_pca, rs.candidates)
+                cc_t, curv_t = compact_candidates(dt, ft_pca, rt.candidates)
+                kp_s = refine_positions(kp_s, kp_s_mask, cc_s, curv_s,
+                                        radius=rr)
+                kp_t = refine_positions(kp_t, kp_t_mask, cc_t, curv_t,
+                                        radius=rr)
 
     mult = config.feature in MULT_FEATURES
     frames_s = frames_t = fd = stream = None
@@ -189,6 +234,8 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
         if config.feature == FeatureType.BSC:
             fs = extract_bsc(ds, kp_s, kp_s_mask, config,
                              num_variants=config.bsc_num_variants)
+            if config.bsc_offsets > 1:
+                fs = offset_encodings(ds, kp_s, kp_s_mask, fs, config)
             ft = extract_bsc(dt, kp_t, kp_t_mask, config, num_variants=1)
             frames_s, frames_t = fs.frames, ft.frames
             if use_stream:
@@ -254,11 +301,45 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
                 # skip the feature-dominant schedule phase (W_FD from e^-3)
                 it_shift = 3.0 * config.weight_changing_rate
 
+    identity = (T0 is None and config.coarse_init == "none"
+                and config.identity_hypotheses > 1)
     with _stage("register", timings, dev):
-        result = ghicp_register_chunked(
-            kp_s, kp_s_mask, kp_t, kp_t_mask, fd, bbx, config,
-            init_transform=T0, it_shift=it_shift, device=dev,
-            iteration_callback=iteration_callback, stream=stream)
+        if identity:
+            # schedule-shifted identity starts explore distinct basins of
+            # the FD-dominated early phase; the geometric consensus (rows
+            # within 3 voxels of a target keypoint), not the matched RMSE,
+            # picks the winner
+            rate = config.weight_changing_rate
+            shifts = (0.0, rate, 3.0 * rate)[:config.identity_hypotheses]
+            stride = max(kp_s.shape[0] // 2048, 1)
+            kp_sub, mask_sub = kp_s[::stride], kp_s_mask[::stride]
+            result, best_score = None, -1
+            for sh in shifts:
+                cand = ghicp_register_chunked(
+                    kp_s, kp_s_mask, kp_t, kp_t_mask, fd, bbx, config,
+                    init_transform=None, it_shift=sh, device=dev,
+                    iteration_callback=iteration_callback, stream=stream)
+                score = consensus_score(cand.transform, kp_sub, mask_sub,
+                                        kp_t, kp_t_mask,
+                                        3.0 * config.voxel_size)
+                if score > best_score:
+                    result, best_score = cand, score
+            n_sub = int(mask_sub.sum())
+        else:
+            result = ghicp_register_chunked(
+                kp_s, kp_s_mask, kp_t, kp_t_mask, fd, bbx, config,
+                init_transform=T0, it_shift=it_shift, device=dev,
+                iteration_callback=iteration_callback, stream=stream)
+    if identity and best_score < (0.55 * config.estimated_overlap
+                                  * max(n_sub, 1)):
+        # no hypothesis verified: the feature-guided RANSAC pipeline as
+        # the last hypothesis (a correct pose scores ~0.70 of the rows at
+        # full overlap, a wrong basin ~0.37)
+        return register_pair(
+            source_pts, target_pts,
+            dataclasses.replace(config, coarse_init="ransac",
+                                identity_hypotheses=1),
+            keypoint_capacity, None, iteration_callback, device)
     return RegistrationOutput(
         transform=result.transform.cpu().numpy(), result=result,
         n_source_down=n_vs, n_target_down=n_vt,

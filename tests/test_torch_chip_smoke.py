@@ -38,7 +38,8 @@ def test_compare_phase_at_small_size(monkeypatch):
         torch, seed=7, size=512, device="cpu", stream_rows=512,
         stream_cols=384, compact_rows=128,
         top2_shapes=((2, 128, 256, "bfloat16"), (1, 64, 96, "float32")),
-        big=768, no_table=512)
+        big=768, no_table=512, huge=1024, wide_sizes=(384, 256),
+        wide_variants=(12, 6))
     assert [r["name"] for r in rows] == ["fused_benefit",
                                          "fused_benefit_mult",
                                          "fused_benefit_f32",
@@ -82,6 +83,9 @@ def test_compare_phase_at_small_size(monkeypatch):
             want = ([512, 768] if r["name"].startswith("fused") else
                     [(512, 0), (512, 0), (768, 0), (768, 0), (768, 2),
                      (768, 2)])
+            if r["name"] == "auction_phase_gs":
+                # past 1024 row tiles on the card (36,864^2), cold and warm
+                want += [(1024, 0), (1024, 0)]
             got = [c["S"] if r["name"].startswith("fused") else
                    (c["S"], c["form"]) for c in r["cases"]]
             assert got == want
@@ -104,11 +108,30 @@ def test_compare_phase_at_small_size(monkeypatch):
             assert min(r["kernel_ms"], r["budget16_ms"],
                        r["budget16_kernel_ms"]) > 0
             assert r["budget16_bound_ms"] >= r["bound_ms"]
+        if r["name"] == "auction_warm_fused":
+            # past the shared-memory replica (on the card 24,576^2 in its
+            # own form and forced into form 2, and 36,864^2)
+            assert [(c["S"], c["form"]) for c in r["cases"]] == [
+                (768, 0), (768, 2), (1024, 0)]
+            assert all(c["kernel_ms"] > 0 and c["bound_ms"] > 0
+                       for c in r["cases"])
+        if r["name"] in ("stream_sweep", "stream_sweep_col"):
+            # past four variants (hamg_kernel): V = 12 and 6 at two sizes
+            # and on a compacted block of the second; the column side at
+            # V = 12 at the first
+            wide = [(c["V"], c["rows"], c["cols"]) for c in r["cases"]
+                    if "V" in c]
+            assert wide == ([(12, 384, 384), (12, 256, 256), (12, 128, 256),
+                             (6, 384, 384), (6, 256, 256), (6, 128, 256)]
+                            if r["name"] == "stream_sweep"
+                            else [(12, 384, 384)])
         if r["name"] == "auction_warm_fused_mult":
             # the bf16 mult form without its table (on the card at
-            # 20,480 slots)
-            (case,) = r["cases"]
+            # 20,480 slots), then past the shared-memory replica as K3
+            case, *forms = r["cases"]
             assert not case["table"] and case["kernel_ms"] > 0
+            assert [(c["S"], c["form"], c["mult"]) for c in forms] == [
+                (768, 0, True), (768, 2, True), (1024, 0, True)]
         if r["name"] == "top2_rows":
             assert r["library_ms"] > 0
         else:
@@ -221,6 +244,45 @@ def test_config_helpers_are_the_bench_settings():
     assert c6.keypoint_capacity == 51200 and c6.non_max_radius == 0.155
     assert c6.streaming_cost == "on" and c6.pca_max_cells == 262144
     assert chip_smoke.CONFIG6_CUT_SLOTS < c6.keypoint_capacity
+
+
+def _calls(file: str, func: str, callee: str) -> list:
+    """The keyword arguments (literals; an enum by its member's name) of
+    each ``callee(...)`` call inside ``file::func``, read from its source
+    (``bench_configs.py`` imports JAX)."""
+    import ast
+    root = pathlib.Path(chip_smoke.__file__).resolve().parent
+    tree = ast.parse((root / file).read_text())
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == func)
+    out = []
+    for node in ast.walk(fn):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+                and node.func.id == callee):
+            kw = {}
+            for k in node.keywords:
+                try:
+                    kw[k.arg] = ast.literal_eval(k.value)
+                except ValueError:
+                    kw[k.arg] = k.value.attr
+            out.append(kw)
+    return out
+
+
+@pytest.mark.parametrize("which", ["config4", "config7"])
+def test_option_configs_are_the_bench_settings(which):
+    """Phase 11 writes out bench_configs.py's configs 4 and 7 (which import
+    JAX): every setting of their GHICPConfig, and config 7's scan pair
+    arguments."""
+    import dataclasses
+    (want,) = _calls("bench_configs.py", which, "GHICPConfig")
+    got = dataclasses.asdict(getattr(chip_smoke, which)())
+    for k, v in want.items():
+        g = got[k]
+        assert (g.name if hasattr(g, "name") else g) == v, k
+    if which == "config7":
+        assert (_calls("chip_smoke.py", "config7_pair", "make_tls_scan_pair")
+                == _calls("bench_configs.py", which, "make_tls_scan_pair"))
 
 
 def test_save_engine_record_round_trips(tmp_path):

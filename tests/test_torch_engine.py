@@ -312,39 +312,60 @@ def test_none_km_never_takes_the_warm_kernel(problem, monkeypatch):
     assert int(got.iterations) == 4 and calls == []
 
 
-def test_warm_kernel_only_where_its_shared_memory_fits(problem,
-                                                       monkeypatch):
-    """K3 keeps a replica of the prices, the owners and the open flags in
-    each block's shared memory, so an engine past about 23,500 keypoint
-    slots (24,576 or 32,768, with streaming_cost='off' or an explicit
-    keypoint_capacity) takes the K1 + K2 solve instead of raising.  The
-    gate at those sizes; and the engine at S = T = 1024 with a block's
-    shared memory set one byte under K3's need: no K3 call, the run
-    completes (with the real limit, K3 from the third iteration on)."""
+GATE_SHAPES = (1024, 8192, 16384, 23552, 24576, 32768, 36864, 65536)
+
+
+def _jax_gate(S, T):
+    """The shape terms of the JAX package's warm-kernel gate
+    (ghicp_tpu/registration/ghicp.py, ``use_warm_kernel``)."""
+    ts = jau._gs_ts(T)
+    return (S % ts == 0 and S >= 1024 and T >= 1024
+            and ts * T <= 256 * 8192)
+
+
+def test_warm_gate_is_the_jax_gate(problem, monkeypatch):
+    """The port takes K3 exactly where the JAX package takes its warm
+    kernel: the gate has no shared-memory term (K3 keeps its replica of
+    the prices, owners and open flags in shared memory, or in global
+    slices a block past ~23,500 slots), so it agrees with the JAX
+    expression at every shape, 24,576 to 65,536 slots included, and K2 and
+    K3 have a replica form there (no tile cap: 1152 tiles at 36,864).  At
+    S = T = 1024 a run with K3's launch spied on completes and launches it
+    from the third iteration on."""
     import ghicp_tpu_torch.ops.auction_rounds as ar
     import ghicp_tpu_torch.registration.ghicp as tgh
-    for n in (1024, 8192, 16384, 23552):
-        assert ar.warm_kernel_fits(n, n, ar.gs_tile_rows(n))
-    for n in (24576, 32768):
-        assert not ar.warm_kernel_fits(n, n, ar.gs_tile_rows(n))
+    cfg = _port_cfg(BASE)
+    shapes = [(n, n) for n in GATE_SHAPES] + [(1000, 1024), (512, 8192),
+                                              (8192, 262144)]
+    for rows, cols in shapes:
+        assert tgh.warm_gate(rows, cols, cfg) == _jax_gate(rows, cols)
+        ts = ar.gs_tile_rows(cols)
+        if _jax_gate(rows, cols):
+            assert ar.gs_replica_form(rows, cols, ts) >= 0
+            assert ar.warm_replica_form(rows, cols, ts) >= 0
+    assert tgh.warm_gate(24576, 24576, cfg)
+    assert ar.gs_tile_rows(36864) == 32 and 36864 // 32 == 1152
+    assert ar.gs_replica_form(36864, 36864, 32) == 1
+    assert ar.warm_replica_form(36864, 36864, 32) == 1
+    assert ar.warm_replica_form(24576, 24576, 64) == 1
+    assert ar.warm_replica_form(65536, 65536, 32) == 2
+    for off in (dict(warm_fused_kernel=False), dict(auction_phases=2),
+                dict(auction_round_kernel=False)):
+        assert not tgh.warm_gate(8192, 8192, dataclasses.replace(cfg, **off))
     src, tgt, fd, _, _, _ = problem
     ones = np.ones(S, bool)
-    cfg = _port_cfg(dataclasses.replace(BASE, max_iterations=4,
+    run = _port_cfg(dataclasses.replace(BASE, max_iterations=4,
                                         converge_translation=0.0,
                                         converge_rotation=0.0))
-    warm = tgh.auction_warm_fused
-    need = ar.warm_smem_bytes(S, T, ar.gs_tile_rows(T))
-    for smem, want in ((ar._SMEM_MAX, 2), (need - 1, 0)):
-        calls = []
+    warm, calls = tgh.auction_warm_fused, []
 
-        def spy(*a, **k):
-            calls.append(1)
-            return warm(*a, **k)
-        monkeypatch.setattr(ar, "_SMEM_MAX", smem)
-        monkeypatch.setattr(tgh, "auction_warm_fused", spy)
-        got = ghicp_register_chunked(src, ones, tgt, ones, fd, 40.0, cfg,
-                                     device="cpu")
-        assert int(got.iterations) == 4 and len(calls) == want
+    def spy(*a, **k):
+        calls.append(k["prep"].form)
+        return warm(*a, **k)
+    monkeypatch.setattr(tgh, "auction_warm_fused", spy)
+    got = ghicp_register_chunked(src, ones, tgt, ones, fd, 40.0, run,
+                                 device="cpu")
+    assert int(got.iterations) == 4 and calls == [0, 0]
 
 
 def _port_cfg(cfg):

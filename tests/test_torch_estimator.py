@@ -1,13 +1,18 @@
 """Rigid estimators of the port against scipy's rotation oracle, and
-against the JAX package away from 180 degrees."""
+against the JAX package away from 180 degrees; the similarity solvers
+against the JAX package's on the same inputs."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from scipy.spatial.transform import Rotation
 
+from ghicp_tpu.registration import estimator as jest
 from ghicp_tpu.registration.estimator import estimate as jax_estimate
-from ghicp_tpu_torch.registration.estimator import estimate, yaw_4dof
+from ghicp_tpu_torch.registration.estimator import (estimate,
+                                                    similarity_2d_4p,
+                                                    similarity_3d_7p,
+                                                    yaw_4dof)
 
 torch.set_num_threads(1)
 
@@ -58,3 +63,39 @@ def test_yaw_only_and_degenerate_weights():
         T0 = estimate(torch.from_numpy(src), torch.from_numpy(dst), zero,
                       dof=dof)
         assert torch.equal(T0, torch.eye(4))
+
+
+def test_similarity_solvers_match_jax():
+    """The weighted linear least-squares similarities (the reference's
+    CSTRAN_4DOF / CSTRAN_7DOF) on tests/test_core.py's inputs: the known
+    transform recovered, and the JAX package's solution within rtol 1e-4
+    (a float32 solve on both sides, another summation order)."""
+    rng = np.random.default_rng(7)
+    src = rng.normal(size=(100, 3)).astype(np.float32) * 10
+    w = rng.uniform(0.5, 1.5, 100).astype(np.float32)
+    th, s = np.deg2rad(10.0), 1.3
+    R2 = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+    dst_xy = (src[:, :2] @ (s * R2).T + np.array([2.0, -1.0])).astype(
+        np.float32)
+    small = np.array([0.01, -0.02, 0.015])
+    K = np.array([[0, -small[2], small[1]], [small[2], 0, -small[0]],
+                  [-small[1], small[0], 0]])
+    dst = (1.05 * (src @ (np.eye(3) + K.T))
+           + np.array([1.0, 2.0, 3.0])).astype(np.float32)
+    t = torch.from_numpy
+    for weights in (np.ones(100, np.float32), w):
+        p = similarity_2d_4p(t(src[:, :2]), t(dst_xy), t(weights)).numpy()
+        pj = np.asarray(jest.similarity_2d_4p(
+            jnp.asarray(src[:, :2]), jnp.asarray(dst_xy),
+            jnp.asarray(weights)))
+        assert abs(p[2] - s) < 1e-3
+        assert abs(p[0] - 2.0) < 1e-3 and abs(p[1] + 1.0) < 1e-3
+        np.testing.assert_allclose(p[3:], [np.sin(th), np.cos(th)],
+                                   atol=1e-4)
+        np.testing.assert_allclose(p, pj, rtol=1e-4, atol=1e-6)
+        q = similarity_3d_7p(t(src), t(dst), t(weights)).numpy()
+        qj = np.asarray(jest.similarity_3d_7p(
+            jnp.asarray(src), jnp.asarray(dst), jnp.asarray(weights)))
+        assert abs(q[6] - 1.05) < 1e-2
+        np.testing.assert_allclose(q[:3], [1.0, 2.0, 3.0], atol=0.05)
+        np.testing.assert_allclose(q, qj, rtol=1e-4, atol=1e-6)

@@ -285,6 +285,60 @@ def test_config6_none_nnr_on_the_port_keypoints():
     assert rot < 0.05 and tr < 0.01, (rot, tr)
 
 
+@pytest.mark.slow
+def test_config6_none_km_on_the_port_keypoints():
+    """Config 6's streaming none + KM (ROADMAP Queue 3: on the card it ends
+    1.94 deg / 0.36 m from the truth at 51,200 slots) on the recorded
+    feature-free engine inputs of ``test_config6_none_nnr_on_the_port_
+    keypoints`` (16,384 slots, NMS 0.3 m, the perturbed truth), KM in place
+    of NNR, without the final resolve (it leaves the pose as it is): the
+    JAX package through ``stream_sweep_ref`` with its zero bit factors, the
+    port through the plain K5-none.  One ``JAX record`` line a package and
+    their distance; the rule: within 0.5 deg / 0.1 m of each other the
+    error is the design's, not the port's."""
+    import jax.numpy as jnp
+
+    import ghicp_tpu.registration.ghicp as jgh
+    from ghicp_tpu.ops.stream_kernel import StreamFeatures
+    from ghicp_tpu_torch.interop import config_from_dict
+    from ghicp_tpu_torch.ops.stream_kernel import NoFeatures
+    from ghicp_tpu_torch.registration.ghicp import ghicp_register_chunked
+    d = np.load(CONFIG6_INPUTS)
+    conf = dict(json.loads(str(d["config"])), correspondence="km",
+                final_resolve_rounds=0)
+    cap = len(d["kp_s"])
+    args = [d[k] for k in ("kp_s", "mask_s", "kp_t", "mask_t")]
+    zeros = StreamFeatures(fs=jnp.zeros((1, cap, 128), jnp.bfloat16),
+                           ft=jnp.zeros((cap, 128), jnp.bfloat16),
+                           na=jnp.zeros((1, cap)), nb=jnp.zeros((cap,)))
+    J = jgh.ghicp_register_chunked(
+        *(jnp.asarray(x) for x in args), None, jnp.float32(d["bbx"]),
+        _jax_config(conf), init_transform=jnp.asarray(d["init_transform"]),
+        it_shift=float(d["it_shift"]), stream=zeros)
+    M = ghicp_register_chunked(
+        *args, None, float(d["bbx"]), config_from_dict(conf),
+        init_transform=d["init_transform"], it_shift=float(d["it_shift"]),
+        device="cpu", stream=NoFeatures(cap))
+    poses = {}
+    for name, T_est, its, cor in (
+            ("JAX", np.asarray(J.transform), int(J.iterations),
+             np.asarray(J.metrics.cor)),
+            ("port", M.transform.numpy(), int(M.iterations),
+             M.metrics.cor.numpy())):
+        rot, tr = transform_error(T_est, d["T_gt"])
+        poses[name] = T_est
+        print("JAX record", json.dumps(dict(
+            package=name, lane="streaming", feature="none",
+            correspondence="km", start="perturbed truth", slots=cap,
+            keypoints=[int(d["mask_s"].sum()), int(d["mask_t"].sum())],
+            iterations=its, cor=cor[:its].tolist(), rot_err_deg=rot,
+            t_err_m=tr, transform=T_est.tolist())), flush=True)
+    rot, tr = transform_error(poses["port"], poses["JAX"])
+    print("JAX record", json.dumps(dict(port_vs_jax_deg=rot,
+                                        port_vs_jax_m=tr)), flush=True)
+    assert rot < 0.5 and tr < 0.1, (rot, tr)
+
+
 # The verdict run's engine inputs as the port took them on the card
 # (``chip_smoke.py --save-engine-inputs``, phase 3, --seed 7): keypoints,
 # masks, the BSC FD (uint16 Hamming distances), bounding box and RANSAC

@@ -57,7 +57,7 @@ def test_unpacked_bits_equal_jax_bits(V):
     np.testing.assert_array_equal(f.nb.numpy(), np.asarray(jf.nb))
 
 
-@pytest.mark.parametrize("V", [1, 2, 4])
+@pytest.mark.parametrize("V", [1, 2, 4, 6, 12])
 def test_integer_product_gives_the_xor_popcount_fd(V):
     """min_v (na_v + nb - 2 a_v . b) in int32 over the int8 rows (the
     tensor-core kernel's sum) equals the XOR-popcount FD of every pair and
@@ -79,6 +79,43 @@ def test_integer_product_gives_the_xor_popcount_fd(V):
     idx = torch.from_numpy(rng.integers(0, C, S))
     fd = stream_selected(kp_s, kp_t, f, idx, 0.7, 0.3, 0.1)[2]
     assert torch.equal(fd, h[torch.arange(S), idx].to(torch.float32))
+
+
+@pytest.mark.parametrize("V", [6, 12])
+def test_plain_sweep_past_four_variants_matches_jax(V):
+    """Localization-aware BSC stacks 2 or 4 flip variants at up to 7
+    positions on the variant axis (V = 6 at 4-DoF, 12 at 6-DoF with
+    bsc_offsets = 3): the plain K5 against the JAX package's stream_sweep
+    (its Pallas kernel in interpret mode) on the same bits.  With the FD
+    term alone (W_ED = 0) the top-2 and vsel are bit-equal; with the ED
+    term too, the columns are equal and v1 / v2 / vsel within 1e-6
+    relative (the ED cross term: three float32 products here, a
+    HIGHEST-precision dot there)."""
+    from ghicp_tpu.ops.stream_kernel import stream_sweep as jax_sweep
+    rng = np.random.default_rng(40 + V)
+    S = C = 256
+    bs, bt = _bits(rng, V, S, C)
+    f = _feats(bs, bt)
+    jf = jax_feats(packed_s=jax_pack_bits(jnp.asarray(bs)),
+                   packed_t=jax_pack_bits(jnp.asarray(bt)), n_bits=N_BITS)
+    for wed, wfd in ((0.0, 0.3), (0.7, 0.3)):
+        a = _sweep_args(np.random.default_rng(V), S, C, f, wed, wfd)
+        got = stream_sweep_plain(*a)
+        want = jax_sweep(*(jnp.asarray(x.numpy()) if torch.is_tensor(x)
+                           else x for x in (a[:2] + (jf,) + a[3:])),
+                         ts=128, tc=128, interpret=True)
+        for k in ("j1", "j2"):
+            np.testing.assert_array_equal(getattr(got, k).numpy(),
+                                          np.asarray(getattr(want, k)))
+        for k in ("v1", "v2", "vsel"):
+            g, w = getattr(got, k).numpy(), np.asarray(getattr(want, k))
+            if wed == 0.0:
+                np.testing.assert_array_equal(g.view(np.uint32),
+                                              w.view(np.uint32))
+            else:
+                np.testing.assert_allclose(g, w, rtol=1e-6)
+        assert float(got.cnt) == float(want.cnt)
+        assert float(got.fd_max) == float(want.fd_max)
 
 
 def test_subset_rows_keeps_both_forms_aligned():
@@ -536,7 +573,8 @@ def _ham_col_model(args, splits, rng):
 
 
 @pytest.mark.parametrize("V,S,C,splits,tie_block", [
-    (4, 200, 300, 1, False), (2, 256, 200, 3, True), (1, 150, 140, 2, True)])
+    (4, 200, 300, 1, False), (2, 256, 200, 3, True), (1, 150, 140, 2, True),
+    (12, 130, 200, 2, True), (6, 128, 150, 1, False)])
 def test_ham_col_model_matches_plain(V, S, C, splits, tie_block):
     """The Hamming lane's column side in ham_kernel's accumulator layout
     (two rows a lane, 8 lanes a column, four warps, two warpgroups; keys
