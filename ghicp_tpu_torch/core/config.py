@@ -96,9 +96,8 @@ class GHICPConfig:
     converge_translation: float = 0.02
     converge_rotation: float = 0.02
     max_iterations: int = 100
-    engine_chunk: int = 64                # inert here: the port's engine is
-                                          # a host loop with one read of
-                                          # ``converged`` per iteration
+    engine_chunk: int = 64                # iterations between two calls of
+                                          # the engine's iteration_callback
 
     # --- robust transform estimation ---
     confidence_weighting: bool = True

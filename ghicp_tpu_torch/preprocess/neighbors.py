@@ -16,13 +16,50 @@ from typing import NamedTuple
 import torch
 
 from ghicp_tpu_torch.core.types import PointCloud
-from ghicp_tpu_torch.preprocess.hashing import IMAX, OFFSET_HASHES, cell_hash
+from ghicp_tpu_torch.preprocess.hashing import (IMAX, OFFSET_HASHES,
+                                                cell_hash, wrap32)
 
 
 class NeighborList(NamedTuple):
     idx: torch.Tensor     # [Nq, K] indices into the support
     valid: torch.Tensor   # [Nq, K] bool
     dist2: torch.Tensor   # [Nq, K] squared distances (inf where invalid)
+
+
+class HashGrid(NamedTuple):
+    """Support cloud sorted by cell hash (the baselines' nearest-neighbor
+    grid)."""
+    sorted_keys: torch.Tensor  # [N] int32 cell hashes, ascending
+    order: torch.Tensor        # [N] permutation into the original support
+    xyz: torch.Tensor          # [N, 3] support coordinates (original order)
+    mask: torch.Tensor         # [N] support validity (original order)
+    min_xyz: torch.Tensor      # [3] grid origin
+    cell: float
+
+
+def _point_hash(xyz: torch.Tensor, min_xyz: torch.Tensor,
+                cell: float) -> torch.Tensor:
+    """[N] int32 cell hashes with the JAX package's int32 wrap-around
+    (summed in int64 and reduced, which gives the same bits)."""
+    return cell_hash(xyz, min_xyz, cell).to(torch.int32)
+
+
+def offset_hashes(hashes: torch.Tensor) -> torch.Tensor:
+    """[..., 27] int32 hashes of the 27 cells around each int32 hash (the
+    hash is linear, so a neighbor's is the sum, wrapped)."""
+    off = torch.as_tensor(OFFSET_HASHES, device=hashes.device)
+    return wrap32(hashes.to(torch.int64)[..., None] + off).to(torch.int32)
+
+
+def build_grid(support: PointCloud, cell: float) -> HashGrid:
+    """Hash each valid point's cell (padding takes IMAX) and sort stably
+    by hash, as ``jnp.argsort`` does."""
+    mn = torch.where(support.mask[:, None], support.xyz, 3e38).amin(dim=0)
+    keys = torch.where(support.mask, _point_hash(support.xyz, mn, cell),
+                       IMAX)
+    sk, order = torch.sort(keys, stable=True)
+    return HashGrid(sorted_keys=sk, order=order, xyz=support.xyz,
+                    mask=support.mask, min_xyz=mn, cell=cell)
 
 
 class CellTable(NamedTuple):

@@ -853,11 +853,22 @@ def _loop(kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude, config,
     bbx = float(bbx_magnitude)
     state = initial_state(kp_s, kp_t.shape[0], config, T0, it_shift)
     body = make_body(kp_t, mask_s, mask_t, fd, bbx, config, stream)
+
+    def report():
+        iteration_callback(state.it, state.kps.cpu().numpy(),
+                           state.matches.cpu().numpy())
+
+    # the callback fires where the JAX package's chunked loop returns to the
+    # host: every ``engine_chunk`` iterations and once at the end
+    reported = None
     while not state.converged and state.it < config.max_iterations:
         state = body(state)
-        if iteration_callback is not None:
-            iteration_callback(state.it, state.kps.cpu().numpy(),
-                               state.matches.cpu().numpy())
+        if iteration_callback is not None and (
+                state.it % config.engine_chunk == 0):
+            report()
+            reported = state.it
+    if iteration_callback is not None and reported != state.it:
+        report()
     return state, kp_t, mask_s, mask_t, fd, bbx, stream
 
 
@@ -893,7 +904,8 @@ def ghicp_register_chunked(kp_s, mask_s, kp_t, mask_t, fd,
     to ``device`` (the card by default).  ``stream`` (``fd`` None: packed
     BSC factors, FPFH/RoPS ``DescFeatures`` or ``NoFeatures``) selects the
     streaming lane.  ``iteration_callback(it, kps, matches)`` gets host
-    numpy copies after every iteration."""
+    numpy copies every ``config.engine_chunk`` iterations and when the loop
+    ends, as the JAX package's chunked loop calls it."""
     state, kp_t, mask_s, mask_t, fd, bbx, stream = _loop(
         kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude, config,
         init_transform, it_shift, device, iteration_callback, stream)

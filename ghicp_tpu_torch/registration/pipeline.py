@@ -78,6 +78,22 @@ class RegistrationOutput:
     def success(self) -> bool:
         return bool(self.result.success)
 
+    def final_correspondences(self) -> np.ndarray:
+        """The final matched pairs as [M, 8] float64 rows (src_row,
+        tgt_col, registered source xyz, target xyz): the last iteration's
+        ``Corres.txt`` (km.cpp:144-162)."""
+        matches = np.asarray(torch.as_tensor(self.result.matches).cpu())[
+            :len(self.keypoints_source)]
+        rows = np.nonzero(matches >= 0)[0]
+        cols = matches[rows]
+        sp = self.keypoints_source[rows]
+        sp = sp @ self.transform[:3, :3].T + self.transform[:3, 3]
+        tp = self.keypoints_target[cols]
+        return np.concatenate([rows[:, None].astype(np.float64),
+                               cols[:, None].astype(np.float64),
+                               sp.astype(np.float64),
+                               tp.astype(np.float64)], axis=1)
+
     @property
     def final_rmse(self) -> float:
         return float(self.result.final_rmse)

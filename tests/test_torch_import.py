@@ -70,3 +70,24 @@ def test_feature_interop_defaults_to_the_card(monkeypatch):
     g = stream_features_from_numpy(bits, bits[0], np.zeros((1, 4)),
                                    np.zeros(4), device="cpu")
     assert g.words_s.device.type == "cpu"
+
+
+@pytest.mark.parametrize("module", ["ghicp_tpu_torch.cli.main",
+                                    "ghicp_tpu_torch.cli.warmup"])
+def test_command_lines_leave_jax_out(module):
+    """The command lines run as ``python -m``: their help needs neither
+    JAX nor the JAX package (nor a card)."""
+    code = (f"import runpy, sys\nsys.argv = ['{module}', '-h']\n"
+            "try:\n"
+            f"    runpy.run_module('{module}', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "bad = [m for m in sys.modules if m == 'jax'"
+            " or m.startswith('jax.') or m == 'ghicp_tpu'"
+            " or m.startswith('ghicp_tpu.')]\n"
+            "print('BAD', ','.join(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "usage:" in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "BAD"
