@@ -13,8 +13,14 @@ same printed lines, files and return codes (0 on success, 2 on failure).
 There is no viewer: ``launch_viewer=1`` exports the registered pair as
 PLY files next to the output.  It runs on the card; ``--device cpu``
 runs the plain PyTorch versions on the host.  Not taken: ``--jax-cache``
-(the kernels are built once into the package's ``_build/``) and
-``--distributed`` (multi-process registration is not ported yet).
+(the kernels are built once into the package's ``_build/``).
+``--distributed`` initialises the process group from torchrun's
+environment (``shard/multihost.py::init_distributed``; backend
+``--backend``, by default NCCL on the card and gloo with ``--device
+cpu``) and prints ``[distributed] N process(es), M device(s)``; then, as
+the JAX command line does, every process registers the pair, each on its
+own card (``cuda:{LOCAL_RANK % device_count}``), and prints its result;
+rank 0 alone writes the files.
 
 Usage:  python -m ghicp_tpu_torch.cli.main <13 args> [flags]   (-h)
 """
@@ -26,6 +32,7 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 from ghicp_tpu_torch.core.config import (CorrespondenceType, FeatureType,
                                          GHICPConfig)
@@ -86,6 +93,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' runs the "
                         "plain PyTorch versions on the host)")
+    p.add_argument("--distributed", action="store_true",
+                   help="initialize torch.distributed from torchrun's "
+                        "environment (MASTER_ADDR / MASTER_PORT / "
+                        "WORLD_SIZE / RANK / LOCAL_RANK) before running")
+    p.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                   help="the process group's backend under --distributed "
+                        "(default: nccl, gloo with --device cpu)")
     return p
 
 
@@ -113,6 +127,19 @@ def config_from_args(args: argparse.Namespace) -> GHICPConfig:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     config = config_from_args(args)
+    device, writer = args.device, True
+    if args.distributed:
+        from ghicp_tpu_torch.shard import init_distributed, rank_device
+        cpu = device == "cpu"
+        backend = args.backend or ("gloo" if cpu else "nccl")
+        n_proc = init_distributed(backend=backend)
+        if device is None:
+            device = rank_device()
+        n_dev = 1 if cpu else min(n_proc, torch.cuda.device_count())
+        print(f"[distributed] {n_proc} process(es), {n_dev} device(s)")
+        if n_proc > 1:
+            import torch.distributed as dist
+            writer = dist.get_rank() == 0
 
     t0 = time.perf_counter()
     tgt, _ = read_cloud(args.target)
@@ -128,7 +155,7 @@ def main(argv=None) -> int:
         cb = lambda it, kps, matches: snapshots.append((it, kps, matches))
 
     out = register_pair(src, tgt, config, iteration_callback=cb,
-                        device=args.device)
+                        device=device)
     it = int(out.result.iterations)
     m = out.result.metrics
     cor, rmse, iou, pen = (np.asarray(x.cpu()) for x in (
@@ -144,6 +171,24 @@ def main(argv=None) -> int:
     print(np.array2string(out.transform, precision=6, suppress_small=False))
 
     registered = src @ out.transform[:3, :3].T + out.transform[:3, 3]
+    if writer:
+        _write(args, out, src, tgt, shift_s, registered, snapshots)
+
+    if args.json:
+        print(json.dumps({
+            "success": bool(out.success), "iterations": it,
+            "final_rmse": out.final_rmse,
+            "transform": out.transform.tolist(),
+            "timings": out.timings}))
+    if args.distributed:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return 0 if out.success else 2
+
+
+def _write(args, out, src, tgt, shift_s, registered, snapshots) -> None:
+    """The run's files: the registered cloud and every asked-for export."""
     write_cloud(args.output, registered, global_shift=shift_s)
     print(f"[io] wrote {args.output}")
 
@@ -190,14 +235,6 @@ def main(argv=None) -> int:
         write_cloud(base + "_pair_source.ply", registered)
         write_cloud(base + "_pair_target.ply", tgt)
         print(f"[viewer] exported {base}_pair_*.ply")
-
-    if args.json:
-        print(json.dumps({
-            "success": bool(out.success), "iterations": it,
-            "final_rmse": out.final_rmse,
-            "transform": out.transform.tolist(),
-            "timings": out.timings}))
-    return 0 if out.success else 2
 
 
 if __name__ == "__main__":

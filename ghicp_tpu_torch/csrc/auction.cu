@@ -52,7 +52,9 @@
 // state, the sweeps run from sweep 0 at eps * sched[r] (eps and sink are
 // device scalars), then the rows left open are completed greedily at the
 // final prices (a block-wide scan a row: best column or the sink) and the
-// replica is written out.
+// replica is written out.  An owner S (the row-sharded auction's owner of
+// a column held by another rank's row) is carried as it is and, when its
+// column is won here, reopens no local row.
 //
 // K3 design (warm_fused_kernel<T, MULT, LUT, FORM>):
 //   sweep 0  each block owns bands of 64 rows, a warp 4 of them.  Chunks of
@@ -407,7 +409,9 @@ __device__ int gs_sweeps(const GsArgs& A, cg::grid_group& grid,
             s_own[col] = row;
             s_p[col] = __fadd_rn(s_p[col], o2f((unsigned int)(key >> 32)));
             s_open[row] = 0;
-            if (victim >= 0) s_open[victim] = 1;
+            // a victim of another rank's rows (owner S, the sharded
+            // auction's foreign owner) has no local open flag
+            if (victim >= 0 && victim < A.S) s_open[victim] = 1;
           }
         }
       }

@@ -1,4 +1,4 @@
-"""Auction assignment (the port's KM solver), single device.
+"""Auction assignment (the port's KM solver), on one device or row-sharded.
 
 Forward auction with an outside option: each open row bids for its best
 column, ``bid = p[j1] + v1 - max(v2, sink) + eps``; columns go to the
@@ -21,6 +21,16 @@ violators re-bid.  Two branches, with the JAX package's dispatch
   semantics of the JAX package's vmapped ``while_loop``.  The loop is on
   the host, with one read of the open-row counts a round (one for all
   pairs) and one read a phase.
+
+Under a distributed ``comm`` (:mod:`ghicp_tpu_torch.core.comm`, one pair)
+the rows are this rank's shard of ``total_rows``, with global row ids from
+``row_offset``: a column's best bid and then its winner are maxima over
+the ranks, owners are global row ids (their rebuild a pmax, a release a
+pmin) and the open-row counts are summed.  The Gauss-Seidel branch then
+runs sharded (:func:`_gs_sharded`, the JAX package's gate: one phase):
+each rank makes one K2 launch a sweep on its rows, a column held by
+another rank's row carrying the owner R (the kernel's scratch slot), and
+after each sweep the ranks reconcile prices and winners by two maxima.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ghicp_tpu_torch.core.comm import LOCAL, Comm
 from ghicp_tpu_torch.matching.matchers import MatchResult
 from ghicp_tpu_torch.ops.auction_rounds import auction_phase_gs, gs_tile_rows
 from ghicp_tpu_torch.ops.top2 import top2_rows
@@ -88,12 +99,13 @@ def _select(keep_new: torch.Tensor, new, old):
                              n, o) for n, o in zip(new, old))
 
 
-def _reopen_violators(b, sink, st, eps_prev, eps_now):
+def _reopen_violators(b, sink, st, eps_prev, eps_now, comm: Comm = LOCAL):
     """Deflate the +eps bid overshoot and unassign rows violating eps-CS
     at the tightened epsilon (between phases of a ladder).  b [P, R, C];
     ``sink``, ``eps_prev``, ``eps_now`` [P]; state (owner [P, C], acol
     [P, R], p [P, C]).  The cascade sweeps 2-4 run for the pairs whose
-    sweep 1 reopened a row (the JAX ``lax.cond``, picked per pair)."""
+    sweep 1 reopened a row on any rank (the JAX ``lax.cond``, picked per
+    pair)."""
     owner, acol, p = st
     C = b.shape[-1]
     p = torch.clamp(p - (eps_prev - eps_now)[:, None], min=0.0)
@@ -107,13 +119,15 @@ def _reopen_violators(b, sink, st, eps_prev, eps_now):
                           b.gather(-1, cur[..., None])[..., 0].float()
                           - p.gather(-1, cur))
         ok = (acol < 0) | (val >= v1 - eps_now[:, None])
-        owner = _drop_scatter(owner, torch.where(~ok & real, acol, C), -1)
+        owner = comm.pmin(_drop_scatter(owner,
+                                        torch.where(~ok & real, acol, C),
+                                        -1))
         acol = torch.where(ok, acol, -1)
         p = torch.where(owner < 0, 0.0, p)
         return owner, acol, p
 
     st1 = sweep(owner, acol, p)
-    reopened = ((st1[1] == -1) & (acol != -1)).any(dim=-1)
+    reopened = comm.psum(((st1[1] == -1) & (acol != -1)).sum(dim=-1)) > 0
     if bool(reopened.any()):
         st4 = st1
         for _ in range(3):
@@ -122,10 +136,19 @@ def _reopen_violators(b, sink, st, eps_prev, eps_now):
     return st1
 
 
-def _bidding_round(b, eps, sink, st):
+def _local_rows(ids, cond, offset: int, R: int):
+    """Global row ``ids`` as this rank's local rows where ``cond`` holds and
+    the row is local, else R (dropped by :func:`_drop_scatter`)."""
+    loc = ids - offset
+    return torch.where(cond & (loc >= 0) & (loc < R), loc, R)
+
+
+def _bidding_round(b, eps, sink, st, row_offset: int = 0,
+                   comm: Comm = LOCAL):
     """One synchronous (Jacobi) bidding round over [P, R, C] benefits at
     epsilon ``eps`` [P] and outside option ``sink`` [P]; state (owner
-    [P, C], acol [P, R], p [P, C])."""
+    [P, C] global row ids, acol [P, R], p [P, C]); this rank's rows start
+    at global row ``row_offset``."""
     owner, acol, p = st
     P, R, C = b.shape
     unassigned = acol < 0
@@ -139,15 +162,18 @@ def _bidding_round(b, eps, sink, st):
     bid = torch.where(bidding, bid, NEG)
     win_bid = torch.full((P, C), NEG, dtype=torch.float32, device=b.device)
     win_bid.scatter_reduce_(1, j1, bid, "amax")
+    win_bid = comm.pmax(win_bid)
     wb = win_bid.gather(-1, j1)
     is_best = bidding & (bid == wb) & (wb > NEG)
-    rows = torch.arange(R, device=b.device).expand(P, R)
+    rows = (row_offset + torch.arange(R, device=b.device)).expand(P, R)
     # among equal best bids the highest row id wins (a scatter-max)
     winner = torch.full((P, C), -1, dtype=torch.int64, device=b.device)
     winner.scatter_reduce_(1, j1, torch.where(is_best, rows, -1), "amax")
+    winner = comm.pmax(winner)
     has = winner >= 0
-    acol = _drop_scatter(acol, torch.where(has & (owner >= 0), owner, R), -1)
-    acol = _drop_scatter(acol, torch.where(has, winner, R),
+    acol = _drop_scatter(acol, _local_rows(owner, has & (owner >= 0),
+                                           row_offset, R), -1)
+    acol = _drop_scatter(acol, _local_rows(winner, has, row_offset, R),
                          torch.arange(C, device=b.device))
     owner = torch.where(has, winner, owner)
     p = torch.where(has, win_bid, p)
@@ -163,7 +189,7 @@ def _esc_eps(eps, r, r0, esc_after, esc_period):
 
 
 def _run_phase(b, eps, sink, st, r0: np.ndarray, max_rounds: np.ndarray,
-               run: np.ndarray):
+               run: np.ndarray, row_offset: int = 0, comm: Comm = LOCAL):
     """Bid until every row of each running pair is assigned (to a column or
     the sink) or the pair's TOTAL round budget ``max_rounds`` is spent;
     epsilon escalates geometrically past a quarter of the remaining budget.
@@ -174,19 +200,20 @@ def _run_phase(b, eps, sink, st, r0: np.ndarray, max_rounds: np.ndarray,
     esc_period = np.maximum(remaining // 16, 1)
     r = r0.copy()
     while True:
-        n_open = (st[1] < 0).sum(dim=-1).cpu().numpy()
+        n_open = comm.psum((st[1] < 0).sum(dim=-1)).cpu().numpy()
         go = run & (n_open > 0) & (r < max_rounds)
         if not go.any():
             break
         new = _bidding_round(b, _esc_eps(eps, r + 1, r0, esc_after,
-                                         esc_period), sink, st)
+                                         esc_period), sink, st, row_offset,
+                             comm)
         st = _select(torch.as_tensor(go).to(b.device), new, st)
         r = r + go
     return st, r, _esc_eps(eps, r, r0, esc_after, esc_period)
 
 
 def _jacobi(b, sink, eps_final, eps0, st, max_rounds: np.ndarray,
-            active: np.ndarray):
+            active: np.ndarray, row_offset: int = 0, comm: Comm = LOCAL):
     """The epsilon-scaling ladder of Jacobi phases: from ``eps0`` divide by
     ``EPS_SCALING`` down to ``eps_final``, reopening eps-CS violators only
     when another phase follows.  Returns (owner, acol, p, rounds [P] host,
@@ -202,13 +229,15 @@ def _jacobi(b, sink, eps_final, eps0, st, max_rounds: np.ndarray,
     while not done.all():
         run = ~done
         st_new, r_new, term_new = _run_phase(b, eps_now, sink, st, rounds,
-                                             max_rounds, run)
+                                             max_rounds, run, row_offset,
+                                             comm)
         at_final = (eps_now <= eps_final * 1.0001).cpu().numpy()
         fin = at_final | (r_new >= max_rounds)
         eps_next = torch.maximum(eps_now * shrink, eps_final)
         again = run & ~fin
         if again.any():
-            st_re = _reopen_violators(b, sink, st_new, eps_now, eps_next)
+            st_re = _reopen_violators(b, sink, st_new, eps_now, eps_next,
+                                      comm)
             st_new = _select(torch.as_tensor(again).to(dev), st_re, st_new)
         run_t = torch.as_tensor(run).to(dev)
         st = _select(run_t, st_new, st)
@@ -272,6 +301,57 @@ def _gs_phases(b, sink_t, eps_final, eps0, owner, acol, p, max_rounds: int,
     return acol, p, spent, eps_bound
 
 
+def _gs_sharded(b, sink_t, eps_final, owner_g, acol, p, max_rounds: int,
+                row_offset: int, comm: Comm):
+    """The sharded Gauss-Seidel branch (one phase): each sweep is one K2
+    launch of one sweep on this rank's rows at the escalated epsilon (the
+    kernel's own escalation off), columns owned by another rank's row
+    passed with the owner R; then every column goes to the highest price
+    over the ranks and, among its bidders at that price, the highest
+    global row; rows rebuild their columns from the reconciled owners.
+    Prices only rise and winners pay their own bids: the asynchronous
+    auction, with the single-device kernel's eps-CS end but not its
+    trajectory.  Returns (acol [R], p [C], sweeps, eps bound)."""
+    R, C = b.shape
+    dev = b.device
+    ts = gs_tile_rows(C)
+    esc_after = max(int(max_rounds) // 4, 1)
+    esc_period = max(int(max_rounds) // 16, 1)
+    cols = torch.arange(C, device=dev)
+
+    def esc(r: int):
+        return eps_final * torch.exp2(torch.tensor(
+            float(max(r - esc_after, 0)), device=dev) / float(esc_period))
+
+    r = 0
+    while True:
+        n_open = int(comm.psum((acol == -1).sum()))
+        if n_open == 0 or r >= int(max_rounds):
+            break
+        mine = (owner_g >= row_offset) & (owner_g < row_offset + R)
+        owner_l = torch.where(mine, owner_g - row_offset,
+                              torch.where(owner_g >= 0, R, -1))
+        p2, owner_o, sunk_o, _, _ = auction_phase_gs(
+            b, p, owner_l.to(torch.int32), (acol == SINK).to(torch.int32),
+            (acol == -1).to(torch.int32), esc(r + 1), sink_t, 1, ts=ts,
+            esc_after=0, esc_period=1, complete_open=False)
+        owner_o = owner_o.to(torch.int64)
+        won = (owner_o >= 0) & (owner_o < R) & (p2 > p)
+        cand = torch.where(won, owner_o + row_offset, -1)
+        win_p = comm.pmax(p2)
+        winner = comm.pmax(torch.where((p2 >= win_p) & (cand >= 0), cand,
+                                       -1))
+        changed = (win_p > p) & (winner >= 0)
+        owner_g = torch.where(changed, winner, owner_g)
+        p = torch.where(changed, win_p, p)
+        acol_n = torch.full((R + 1,), -1, dtype=torch.int64, device=dev)
+        acol_n[_local_rows(owner_g, owner_g >= 0, row_offset, R)] = cols
+        acol = torch.where((acol == SINK) | (sunk_o == 1), SINK,
+                           acol_n[:R])
+        r += 1
+    return acol, p, torch.tensor(r, device=dev), esc(r)
+
+
 def _batched(x, single: bool):
     """``x`` with a leading pair axis of 1 for a single-pair call."""
     if x is None or not single:
@@ -285,15 +365,18 @@ def auction_assign(b, sink_value, eps, max_rounds, rel_eps: float = 0.0,
                    b_max=None, acol0: Optional[torch.Tensor] = None,
                    hint_v1: Optional[torch.Tensor] = None,
                    hint_vsel: Optional[torch.Tensor] = None,
-                   keep_slack_extra=None, active=None):
+                   keep_slack_extra=None, active=None, comm: Comm = LOCAL,
+                   row_offset: Optional[int] = None):
     """Assignment on a benefit matrix b [R, C] or [P, R, C] (maximization)
     with an outside option at ``sink_value`` (a scalar or [P]).  Per-pair
     arguments gain the pair axis: ``p0``, ``acol0``, the hints; the
     scalars ``max_rounds``, ``b_max`` and ``keep_slack_extra`` may be [P];
     ``price_uncertainty`` is a scalar, [C] (one pair) or [P] / [P, C].
     ``active`` [P] (host bools, default all) lists the pairs to solve; the
-    others keep their start state.  Returns (acol [R], prices [C], rounds,
-    eps_bound, punc [C]), each with the pair axis of ``b``."""
+    others keep their start state.  Under a distributed ``comm`` (one
+    pair) ``b`` holds this rank's rows, the first at global row
+    ``row_offset`` (default rank * R).  Returns (acol [R], prices [C],
+    rounds, eps_bound, punc [C]), each with the pair axis of ``b``."""
     single = b.ndim == 2
     if single:
         b = b[None]
@@ -301,11 +384,15 @@ def auction_assign(b, sink_value, eps, max_rounds, rel_eps: float = 0.0,
             p0, acol0, hint_v1, hint_vsel))
     P, R, C = b.shape
     dev = b.device
-    rows = torch.arange(R, device=dev)
+    if comm.distributed and P != 1:
+        raise ValueError("auction_assign: a distributed solve takes one pair")
+    if row_offset is None:
+        row_offset = comm.axis_index() * R
+    rows = row_offset + torch.arange(R, device=dev)
     sink = _per_pair(sink_value, P, dev)
     if b_max is None:
-        b_max = b.masked_fill(~torch.isfinite(b), float("-inf")).amax(
-            dim=(-2, -1)).float().clamp(min=NEG)
+        b_max = comm.pmax(b.masked_fill(~torch.isfinite(b), float("-inf"))
+                          .amax(dim=(-2, -1)).float().clamp(min=NEG))
     spread = torch.clamp(_per_pair(b_max, P, dev) - sink, min=0.0)
     eps_final = torch.maximum(_per_pair(eps, P, dev), rel_eps * spread)
     cold_eps0 = (eps_final if n_phases <= 1
@@ -333,7 +420,7 @@ def auction_assign(b, sink_value, eps, max_rounds, rel_eps: float = 0.0,
                                 device=dev)
         owner_init.scatter_reduce_(1, torch.where(real0, acol0, C),
                                    torch.where(real0, rows, -1), "amax")
-        owner_init = owner_init[:, :C]
+        owner_init = comm.pmax(owner_init[:, :C])
         p_init = torch.where(owner_init >= 0, p_init, 0.0)
         if hint_v1 is not None:
             v1, vsel = hint_v1, hint_vsel
@@ -352,15 +439,22 @@ def auction_assign(b, sink_value, eps, max_rounds, rel_eps: float = 0.0,
         keep = own_ok & (vsel >= v1 - eps_keep[:, None])
         stay_sunk = (acol0 == SINK) & (sink[:, None] >= v1
                                        - eps_keep[:, None])
-        owner_init = _drop_scatter(owner_init,
-                                   torch.where(own_ok & ~keep, acol0, C), -1)
+        owner_init = comm.pmin(_drop_scatter(
+            owner_init, torch.where(own_ok & ~keep, acol0, C), -1))
         acol_init = torch.where(keep, acol0,
                                 torch.where(stay_sunk, SINK, -1))
 
     mr = np.broadcast_to(np.asarray(max_rounds, np.int64), (P,)).copy()
     ts = gs_tile_rows(C)
-    if (use_round_kernel and P == 1 and R % ts == 0 and R % 128 == 0
-            and C % 128 == 0 and ts * C <= 256 * 8192):
+    gs_shape = (use_round_kernel and P == 1 and R % ts == 0
+                and R % 128 == 0 and C % 128 == 0 and ts * C <= 256 * 8192)
+    if gs_shape and comm.distributed and n_phases == 1:
+        acol, p, spent, eps_bound = _gs_sharded(
+            b[0], sink[0], eps_final[0], owner_init[0], acol_init[0],
+            p_init[0], int(mr[0]), row_offset, comm)
+        acol, p, eps_bound = acol[None], p[None], eps_bound.reshape(1)
+        rounds = spent.reshape(1)
+    elif gs_shape and not comm.distributed:
         acol, p, spent, eps_bound = _gs_phases(
             b[0], sink[0], eps_final[0], eps0[0], owner_init[0],
             acol_init[0], p_init[0], int(mr[0]), n_phases)
@@ -371,7 +465,7 @@ def auction_assign(b, sink_value, eps, max_rounds, rel_eps: float = 0.0,
                else np.asarray(active, bool))
         _, acol, p, rounds, eps_bound = _jacobi(
             b, sink, eps_final, eps0, (owner_init, acol_init, p_init), mr,
-            act)
+            act, row_offset, comm)
     cert = eps_keep if acol0 is not None else torch.zeros_like(eps_bound)
     punc = torch.where(p != p_init, 2.0 * eps_bound[:, None], cert[:, None])
     rounds = torch.as_tensor(rounds)
@@ -400,10 +494,11 @@ def _complete(acol, b, p, penalty, gate=None):
 
 
 def _finish(real, acol, jc, penalty, S, T, p, rounds, eps_used, punc,
-            cd_sel):
+            cd_sel, comm: Comm = LOCAL):
+    """The result; ``S`` the total rows (every rank's)."""
     w = real.to(torch.float32)
-    cor = w.sum(dim=-1)
-    matched_cd = torch.where(real, cd_sel, 0.0).sum(dim=-1)
+    cor = comm.psum(w.sum(dim=-1))
+    matched_cd = comm.psum(torch.where(real, cd_sel, 0.0).sum(dim=-1))
     energy = matched_cd + penalty * (float(max(S, T)) - cor)
     match = MatchResult(tgt_idx=jc, w=w, n_matches=cor.to(torch.int64))
     return AuctionResult(match=match, prices=p, energy=energy,
@@ -418,11 +513,14 @@ def auction_match_benefits(b, penalty, mask_s, mask_t,
                            use_round_kernel: bool = False,
                            n_phases: int = 2, b_max=None, acol0=None,
                            hint_v1=None, hint_vsel=None,
-                           keep_slack_extra=None,
-                           active=None) -> AuctionResult:
+                           keep_slack_extra=None, active=None,
+                           comm: Comm = LOCAL,
+                           total_rows: Optional[int] = None
+                           ) -> AuctionResult:
     """Auction on a prebuilt benefit matrix b [S, T] or [P, S, T] (-CD at
     candidate pairs, very negative at masked pairs); the penalty gate is
-    the sink."""
+    the sink.  Under a distributed ``comm`` ``b`` holds this rank's rows
+    of ``total_rows``."""
     S, T = b.shape[-2:]
     dev = b.device
     penalty = _f(penalty, dev)
@@ -431,27 +529,29 @@ def auction_match_benefits(b, penalty, mask_s, mask_t,
         price_uncertainty=price_uncertainty,
         use_round_kernel=use_round_kernel, n_phases=n_phases, b_max=b_max,
         acol0=acol0, hint_v1=hint_v1, hint_vsel=hint_vsel,
-        keep_slack_extra=keep_slack_extra, active=active)
+        keep_slack_extra=keep_slack_extra, active=active, comm=comm)
     acol = _complete(acol, b, p, penalty)
     matched = (acol >= 0) & (acol < T)
     jc = torch.where(matched, acol, 0)
     bsel = b.gather(-1, jc[..., None])[..., 0].float()
     real = mask_s & matched & (bsel > -penalty[..., None])
-    return _finish(real, acol, jc, penalty, S, T, p, rounds, eps_used, punc,
-                   -bsel)
+    return _finish(real, acol, jc, penalty, total_rows or S, T, p, rounds,
+                   eps_used, punc, -bsel, comm)
 
 
 def auction_match(cd, penalty, mask_s, mask_t, eps_final: float = 0.01,
                   max_rounds=8000, rel_eps: float = 0.0, p0=None,
                   price_uncertainty=None, quantize_bf16: bool = False,
                   use_round_kernel: bool = False, n_phases: int = 4,
-                  acol0=None, keep_slack_extra=None,
-                  active=None) -> AuctionResult:
+                  acol0=None, keep_slack_extra=None, active=None,
+                  comm: Comm = LOCAL,
+                  total_rows: Optional[int] = None) -> AuctionResult:
     """Global-optimal correspondence via auction on a cost matrix cd
     [S, T] or [P, S, T] (+inf at invalid pairs): maximize the matched
     (penalty - CD) over gated pairs with rows free to stay unmatched.
     ``quantize_bf16`` stores the benefits in bf16 (the type the GS phase
-    kernel takes; the Jacobi lane takes either)."""
+    kernel takes; the Jacobi lane takes either).  Under a distributed
+    ``comm`` ``cd`` holds this rank's rows of ``total_rows``."""
     S, T = cd.shape[-2:]
     dev = cd.device
     penalty = _f(penalty, dev)
@@ -463,12 +563,13 @@ def auction_match(cd, penalty, mask_s, mask_t, eps_final: float = 0.01,
         b, -penalty, eps_final, max_rounds, rel_eps=rel_eps, p0=p0,
         price_uncertainty=price_uncertainty,
         use_round_kernel=use_round_kernel, n_phases=n_phases,
-        acol0=acol0, keep_slack_extra=keep_slack_extra, active=active)
+        acol0=acol0, keep_slack_extra=keep_slack_extra, active=active,
+        comm=comm)
     acol = _complete(acol, b, p, penalty, gate)
     del b
     matched = (acol >= 0) & (acol < T)
     jc = torch.where(matched, acol, 0)
     cd_sel = cd.gather(-1, jc[..., None])[..., 0]
     real = mask_s & matched & gate.gather(-1, jc[..., None])[..., 0]
-    return _finish(real, acol, jc, penalty, S, T, p, rounds, eps_used, punc,
-                   cd_sel)
+    return _finish(real, acol, jc, penalty, total_rows or S, T, p, rounds,
+                   eps_used, punc, cd_sel, comm)

@@ -13,13 +13,17 @@
 
 Masked pairs carry CD = +inf; statistics run over valid pairs only.  All
 take an optional leading pair axis ([P, S, 3] keypoints, [P, S, T]
-matrices) and then compute their statistics per pair.
+matrices) and then compute their statistics per pair.  Under a
+distributed ``comm`` (:mod:`ghicp_tpu_torch.core.comm`) the rows are this
+rank's shard and the statistics are summed over the ranks.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from ghicp_tpu_torch.core.comm import LOCAL, Comm
 
 
 class CostResult(NamedTuple):
@@ -54,13 +58,14 @@ def euclidean_matrix(src: torch.Tensor, tgt: torch.Tensor,
     return d2.clamp_(min=0.0).sqrt_().mul_(scale)
 
 
-def _masked_stats(x: torch.Tensor, m: torch.Tensor):
+def _masked_stats(x: torch.Tensor, m: torch.Tensor, comm: Comm = LOCAL):
     """Mean and std of ``x`` over mask ``m``, per matrix of the last two
-    axes."""
-    n = torch.clamp(m.sum(dim=(-2, -1)).to(torch.float32), min=1.0)
+    axes (over every rank's rows under a distributed ``comm``)."""
+    n = torch.clamp(comm.psum(m.sum(dim=(-2, -1)).to(torch.float32)),
+                    min=1.0)
     xm = torch.where(m, x, 0.0)
-    s1 = xm.sum(dim=(-2, -1))
-    s2 = xm.mul_(xm).sum(dim=(-2, -1))
+    s1 = comm.psum(xm.sum(dim=(-2, -1)))
+    s2 = comm.psum(xm.mul_(xm).sum(dim=(-2, -1)))
     mean = s1 / n
     var = torch.clamp(s2 / n - mean * mean, min=0.0)
     return mean, torch.sqrt(var)
@@ -72,11 +77,11 @@ def none_penalty(mean):
     return torch.clamp(mean, min=1.0)
 
 
-def blend_none(ed, mask_s, mask_t) -> CostResult:
+def blend_none(ed, mask_s, mask_t, comm: Comm = LOCAL) -> CostResult:
     """No-feature cost: CD = ED at valid pairs, penalty
     :func:`none_penalty`."""
     m = mask_s[..., :, None] & mask_t[..., None, :]
-    mean, std = _masked_stats(ed, m)
+    mean, std = _masked_stats(ed, m, comm)
     return CostResult(cd=torch.where(m, ed, torch.inf),
                       penalty=none_penalty(mean), cd_mean=mean, cd_std=std)
 
@@ -94,7 +99,7 @@ def bsc_penalty(mean, std, iteration, rms, fdm, fdstd, para1, para2, scale,
 
 def blend_bsc(ed, fd, mask_s, mask_t, iteration, rms, fdm, fdstd, para1,
               para2, scale, weight_changing_rate: float,
-              penalty_initial: float) -> CostResult:
+              penalty_initial: float, comm: Comm = LOCAL) -> CostResult:
     """Hybrid BSC cost + penalty schedule.  With a pair axis,
     ``iteration`` and the state scalars are [P] tensors."""
     m = mask_s[..., :, None] & mask_t[..., None, :]
@@ -102,7 +107,7 @@ def blend_bsc(ed, fd, mask_s, mask_t, iteration, rms, fdm, fdstd, para1,
     wfd = torch.exp(-it / weight_changing_rate)
     wed = 1.0 - wfd
     cd = (ed * wed[..., None, None]).add_(fd * wfd[..., None, None])
-    mean, std = _masked_stats(cd, m)
+    mean, std = _masked_stats(cd, m, comm)
     penalty = bsc_penalty(mean, std, it, rms, fdm, fdstd, para1,
                           para2, scale, wed, wfd, penalty_initial)
     return CostResult(cd=cd.masked_fill_(~m, torch.inf), penalty=penalty,
@@ -119,7 +124,8 @@ def mult_penalty(mean, iteration, rms, para1, para2, scale,
 
 
 def blend_fpfh(ed, fd_sim, mask_s, mask_t, iteration, rms, para1, para2,
-               scale, penalty_initial: float) -> CostResult:
+               scale, penalty_initial: float,
+               comm: Comm = LOCAL) -> CostResult:
     """FPFH/RoPS cost CD = ED / max(FD, 1e-6)^k, k = 1 / (iteration + 1),
     with FD a similarity in [0, 1], and its penalty schedule.  With a pair
     axis, ``iteration`` and the state scalars are [P] tensors."""
@@ -127,7 +133,7 @@ def blend_fpfh(ed, fd_sim, mask_s, mask_t, iteration, rms, para1, para2,
     it = torch.as_tensor(iteration, dtype=torch.float32, device=ed.device)
     k = 1.0 / (it + 1.0)
     cd = ed / torch.pow(torch.clamp(fd_sim, min=1e-6), k[..., None, None])
-    mean, std = _masked_stats(cd, m)
+    mean, std = _masked_stats(cd, m, comm)
     penalty = mult_penalty(mean, it, rms, para1, para2, scale,
                            penalty_initial)
     return CostResult(cd=cd.masked_fill_(~m, torch.inf), penalty=penalty,

@@ -1,5 +1,5 @@
 """Streaming (matrix-free) auction: the KM-equivalent solve of one engine
-iteration with no [S, T] tensor (PyTorch port, one device).
+iteration with no [S, T] tensor (PyTorch port, one device or row-sharded).
 
 Same forward-auction semantics as :mod:`ghicp_tpu_torch.matching.auction`
 (outside-option sink = -penalty, epsilon-CS, price and assignment warm
@@ -20,6 +20,15 @@ at the frozen epsilon.  Semantics follow the JAX package's
 ``matching/stream_auction.py``; its control flow (``lax.cond`` /
 ``while_loop``) is a host loop here, with one read of the open-row count
 a round.
+
+Under a distributed ``comm`` the rows are this rank's shard of
+``total_rows``: owners are global row ids (pmax to rebuild, pmin to
+release), sweep 0's statistics are summed and its maxima maxed, each
+round's best bids and winners are maxima over the ranks, and the open-row
+and leftover counts are summed, so every rank takes the same branch.  The
+ring lane passes its own sweep (``sweep_fn``, ``sweep_sub_fn``: these
+carry collectives, so the compaction choice is then the ranks' largest
+open count) and matched-pair gathers (``select_fn``).
 """
 from __future__ import annotations
 
@@ -27,7 +36,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ghicp_tpu_torch.matching.auction import SINK
+from ghicp_tpu_torch.core.comm import LOCAL, Comm
+from ghicp_tpu_torch.matching.auction import SINK, _local_rows
 from ghicp_tpu_torch.matching.matchers import MatchResult
 from ghicp_tpu_torch.ops.stream_kernel import (RT, SweepTarget,
                                                stream_selected, stream_sweep,
@@ -82,12 +92,15 @@ def carry_init(n_rows: int, device=None) -> StreamCarry:
                        fd_term=z(), decay_ratio=z())
 
 
-def _resolve_round(v1, j1, v2, eps_r, sink, owner, acol, p):
+def _resolve_round(v1, j1, v2, eps_r, sink, owner, acol, p,
+                   row_offset: int = 0, comm: Comm = LOCAL):
     """One Jacobi bidding round from the rows' top-2: the highest bid wins
-    a column, and among equal bids the highest row id."""
+    a column (over every rank), and among equal bids the highest global
+    row id; owners are global row ids, this rank's rows start at
+    ``row_offset``."""
     R, C = v1.shape[0], p.shape[0]
     dev = v1.device
-    rows = torch.arange(R, device=dev)
+    rows = row_offset + torch.arange(R, device=dev)
     unassigned = acol == -1
     to_sink = unassigned & (v1 <= sink)
     acol = torch.where(to_sink, SINK, acol)
@@ -95,15 +108,16 @@ def _resolve_round(v1, j1, v2, eps_r, sink, owner, acol, p):
     v2s = torch.maximum(v2, sink)
     bid = torch.where(bidding, p[j1] + v1 - v2s + eps_r, NEG)
     win_bid = torch.full((C,), NEG, dtype=torch.float32, device=dev)
-    win_bid = win_bid.scatter_reduce(0, j1, bid, "amax")
+    win_bid = comm.pmax(win_bid.scatter_reduce(0, j1, bid, "amax"))
     is_best = bidding & (bid == win_bid[j1]) & (win_bid[j1] > NEG)
     winner = torch.full((C,), -1, dtype=torch.int64, device=dev)
-    winner = winner.scatter_reduce(0, j1, torch.where(is_best, rows, -1),
-                                   "amax")
+    winner = comm.pmax(winner.scatter_reduce(
+        0, j1, torch.where(is_best, rows, -1), "amax"))
     has = winner >= 0
     ext = torch.cat([acol, acol.new_zeros(1)])
-    ext[torch.where(has & (owner >= 0), owner, R)] = -1
-    ext[torch.where(has, winner, R)] = torch.arange(C, device=dev)
+    ext[_local_rows(owner, has & (owner >= 0), row_offset, R)] = -1
+    ext[_local_rows(winner, has, row_offset, R)] = torch.arange(C,
+                                                                device=dev)
     return (torch.where(has, winner, owner), ext[:R],
             torch.where(has, win_bid, p))
 
@@ -125,7 +139,12 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
                  acol0, pen_prev, carry: Optional[StreamCarry] = None,
                  stats_free: bool = False, open_cap: int = 0,
                  compact_extra_sweeps: int = 0,
-                 target: Optional[SweepTarget] = None) -> StreamSolveResult:
+                 target: Optional[SweepTarget] = None, comm: Comm = LOCAL,
+                 total_rows: Optional[int] = None,
+                 sweep_fn: Optional[Callable] = None,
+                 select_fn: Optional[Callable] = None,
+                 sweep_sub_fn: Optional[Callable] = None
+                 ) -> StreamSolveResult:
     """Matrix-free KM-equivalent solve for one engine iteration.
 
     ``penalty_from_stats(cd_mean, cd_std)`` gives the penalty (the engine
@@ -139,26 +158,42 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
     ``wfd``); a ``NoFeatures``: the feature-"none" lane (CD = W_ED * ED).
     ``target``: the sweeps' target inputs (``sweep_target`` of ``kp_t``,
     ``feats`` and ``mask_t``), made once by the caller; on the card each
-    sweep makes its own without it.
+    sweep makes its own without it.  ``comm`` and ``total_rows``: this
+    rank's rows of a row-sharded solve.  ``sweep_fn(p, acol, with_stats)``,
+    ``sweep_sub_fn(idx, sub_mask, p, acol_sub)`` and ``select_fn(tgt_idx)``
+    replace the sweeps over ``feats`` and its gathers (the ring lane, with
+    ``feats`` None).
     """
     S, C = kp_s.shape[0], kp_t.shape[0]
     dev = kp_s.device
     f = lambda x: torch.as_tensor(x, dtype=torch.float32).to(dev)
+    row_offset = comm.axis_index() * S
     rows = torch.arange(S, device=dev)
+    gid = row_offset + rows              # global row ids
     acol0 = acol0.to(torch.int64)
     cap = min(open_cap, S)
     if cap > 0:
         cap = min(-(-cap // RT) * RT, S)
-    can_compact = 0 < cap < S
+    can_compact = 0 < cap < S and (sweep_fn is None
+                                   or sweep_sub_fn is not None)
+    # a ring sweep carries collectives: every rank compacts or none does
+    uniform_compact = sweep_sub_fn is not None
 
     n_compact = 0
-    def sweep_fn(p, ac, with_stats=False):
-        return stream_sweep(kp_s, kp_t, feats, mask_s, mask_t, p, ac, wed,
-                            wfd, scale, with_stats=with_stats, target=target)
+    if sweep_fn is None:
+        def sweep_fn(p, ac, with_stats=False):
+            return stream_sweep(kp_s, kp_t, feats, mask_s, mask_t, p, ac,
+                                wed, wfd, scale, with_stats=with_stats,
+                                target=target)
+    if select_fn is None:
+        def select_fn(jc):
+            return stream_selected(kp_s, kp_t, feats, jc, wed, wfd, scale)
 
     def sub_sweep(idx, sub_mask, p, ac_sub):
         nonlocal n_compact
         n_compact += 1
+        if sweep_sub_fn is not None:
+            return sweep_sub_fn(idx, sub_mask, p, ac_sub)
         return stream_sweep(kp_s[idx], kp_t, subset_rows(feats, idx),
                             sub_mask, mask_t, p, ac_sub, wed, wfd, scale,
                             with_stats=False, target=target)
@@ -166,8 +201,9 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
     # --- sweep 0: statistics + warm-start hints at mid-deflated prices ---
     real0 = (acol0 >= 0) & (acol0 < C)
     owner0 = torch.full((C + 1,), -1, dtype=torch.int64, device=dev)
-    owner0 = owner0.scatter_reduce(0, torch.where(real0, acol0, C),
-                                   torch.where(real0, rows, -1), "amax")[:C]
+    owner0 = comm.pmax(owner0.scatter_reduce(
+        0, torch.where(real0, acol0, C), torch.where(real0, gid, -1),
+        "amax")[:C])
     d_pre = f(price_uncertainty)
     d_pre_max = d_pre.max()
     p_mid = torch.where(owner0 >= 0, torch.clamp(f(p0) - d_pre, min=0.0),
@@ -177,7 +213,7 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
     fast = carry is not None and carry.ok and bool(stats_free)
     if fast:
         penalty = penalty_from_stats(zero, zero)
-        cd0, _, _ = stream_selected(kp_s, kp_t, feats, jc0, wed, wfd, scale)
+        cd0, _, _ = select_fn(jc0)
         vsel0 = torch.where(real0 & mask_s & mask_t[jc0],
                             -cd0 - p_mid[jc0], NEG)
         dp = torch.abs(penalty - f(pen_prev))
@@ -193,9 +229,15 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
         swept0 = False
     else:
         sw0 = sweep_fn(p_mid, acol0, with_stats=True)
-        cd_mean, cd_std = sweep_moments(sw0)
+        if bool(torch.isnan(sw0.cnt)):
+            raise ValueError("stream_solve: sweep 0 ran without statistics")
+        cnt, s1, s2 = comm.psum(torch.stack([sw0.cnt, sw0.cd_sum,
+                                             sw0.cd_sumsq])).unbind()
+        cd_mean, cd_std = sweep_moments(sw0._replace(cnt=cnt, cd_sum=s1,
+                                                     cd_sumsq=s2))
         penalty = penalty_from_stats(cd_mean, cd_std)
-        b_max, ed_max, fd_max = sw0.b_max, sw0.ed_max, sw0.fd_max
+        b_max, ed_max, fd_max = comm.pmax(torch.stack(
+            [sw0.b_max, sw0.ed_max, sw0.fd_max])).unbind()
         v1_base, vsel0, sw0_j1, sw0_v2 = sw0.v1, sw0.vsel, sw0.j1, sw0.v2
         swept0 = True
     sink = -penalty
@@ -207,13 +249,13 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
     v1_ub = v1_base + dpen
     eps0 = torch.minimum(torch.maximum(dpen + 2.0 * eps, eps),
                          torch.maximum(spread / 8.0, eps))
-    own_ok = real0 & (owner0[jc0] == rows)
+    own_ok = real0 & (owner0[jc0] == gid)
     keep = own_ok & (vsel0 >= v1_ub - eps0)
     stay_sunk = (acol0 == SINK) & (sink >= v1_ub - eps0)
     rel = own_ok & ~keep
     ext = torch.cat([owner0, owner0.new_zeros(1)])
     ext[torch.where(rel, acol0, C)] = -1
-    owner = ext[:C]
+    owner = comm.pmin(ext[:C])
     acol = torch.where(keep, acol0, torch.where(stay_sunk, SINK, -1))
     p = torch.where(owner >= 0, torch.clamp(p_mid - dpen, min=0.0), 0.0)
     p_bid0 = p
@@ -234,7 +276,11 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
     def open_top2(rows_open, n_open: int, p, acol):
         """Top-2 of the open rows: compacted when they fit in ``cap``, else
         a full sweep; full-[S] (v1, j1, v2) with NEG at untouched rows,
-        plus the fresh v1 observations and the rows they cover."""
+        plus the fresh v1 observations and the rows they cover.
+        ``n_open``: this rank's open rows (the ranks' largest count where
+        the sweep carries collectives)."""
+        if uniform_compact:
+            n_open = int(comm.pmax(torch.tensor(n_open, device=dev)))
         if not can_compact or n_open > cap:
             sw = sweep_fn(p, acol)
             return sw.v1, sw.j1, sw.v2, sw.v1, mask_s
@@ -266,10 +312,14 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
     r = 0
     while True:
         rows_open = acol == -1
-        n_open = int(rows_open.sum())
+        n_local = rows_open.sum()
+        n_open = int(comm.psum(n_local))
+        # the extension needs every rank's open rows to fit its block
+        n_most = (int(comm.pmax(n_local)) if extend and comm.distributed
+                  else n_open)
         if r == 0:
             open_rows = n_open
-        in_budget = r < budget or (extend and n_open <= cap
+        in_budget = r < budget or (extend and n_most <= cap
                                    and r < budget_ext)
         if n_open == 0 or not in_budget:
             break
@@ -277,25 +327,27 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
             v1, j1, v2, v1_new, touched = (v1_base, sw0_j1, sw0_v2, v1_base,
                                            mask_s)
         else:
-            v1, j1, v2, v1_new, touched = open_top2(rows_open, n_open, p,
-                                                    acol)
+            v1, j1, v2, v1_new, touched = open_top2(rows_open,
+                                                    int(n_local), p, acol)
         v1_obs = torch.where(touched, v1_new, v1_obs)
         j1_obs = torch.where(touched, j1, j1_obs)
         obs = obs | touched
         owner, acol, p = _resolve_round(v1, j1, v2, esc_eps(r + 1), sink,
-                                        owner, acol, p)
+                                        owner, acol, p, row_offset, comm)
         r += 1
 
     # --- greedy completion at final prices (budget exhaustion) ---
     leftover = acol == -1
-    n_left = int(leftover.sum())
+    n_left_local = leftover.sum()
+    n_left, n_unseen = (int(x) for x in comm.psum(torch.stack(
+        [n_left_local, (leftover & ~obs).sum()])).unbind())
     if n_left > 0:
-        stale = (can_compact and n_left > cap
-                 and not bool((leftover & ~obs).any()))
+        stale = can_compact and n_left > cap and n_unseen == 0
         if stale:
             v1, j1 = v1_obs, j1_obs
         else:
-            v1, j1, _, v1_new, touched = open_top2(leftover, n_left, p, acol)
+            v1, j1, _, v1_new, touched = open_top2(
+                leftover, int(n_left_local), p, acol)
             v1_obs = torch.where(touched, v1_new, v1_obs)
             obs = obs | touched
         acol = torch.where(leftover, torch.where(v1 > sink, j1, SINK), acol)
@@ -303,13 +355,12 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
     # --- selection, gate, energy (matrix-free gathers) ---
     matched = (acol >= 0) & (acol < C)
     jc = torch.where(matched, acol, 0)
-    cd_sel, _, fd_sel = stream_selected(kp_s, kp_t, feats, jc, wed, wfd,
-                                        scale)
+    cd_sel, _, fd_sel = select_fn(jc)
     real = mask_s & matched & mask_t[jc] & (cd_sel < penalty)
     w = real.to(torch.float32)
-    cor = w.sum()
-    matched_cd = torch.where(real, cd_sel, 0.0).sum()
-    energy = matched_cd + penalty * (float(max(S, C)) - cor)
+    cor = comm.psum(w.sum())
+    matched_cd = comm.psum(torch.where(real, cd_sel, 0.0).sum())
+    energy = matched_cd + penalty * (float(max(total_rows or S, C)) - cor)
     eps_used = esc_eps(r)
     return StreamSolveResult(
         match=MatchResult(tgt_idx=jc, w=w, n_matches=cor), prices=p,

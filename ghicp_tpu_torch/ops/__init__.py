@@ -11,6 +11,8 @@ variants under ``*_col``; each K5 launch also counts under
 ``<name>@<rows>``, the rows it swept, so that full-height and compacted
 sweeps can be told apart, each K4 launch under ``nms_exact@<slots>`` and
 each K1, K2 and K3 launch under ``<name>@<rows>``, its keypoint slots.
+The ring lane's ``ring_sweep`` (n K5 launches over rotated target blocks)
+counts once a sweep under its own name, beside its K5 launches.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 LAUNCHES: dict[str, int] = {"fused_benefit": 0, "auction_phase_gs": 0,
                             "auction_warm_fused": 0, "nms_exact": 0,
                             "stream_sweep": 0, "top2_rows": 0,
+                            "ring_sweep": 0,
                             "fused_benefit_mult": 0,
                             "auction_warm_fused_mult": 0,
                             "stream_sweep_mult": 0, "stream_sweep_col": 0,

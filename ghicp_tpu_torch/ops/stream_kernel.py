@@ -49,6 +49,14 @@ compacted sweeps can be priced apart.
 :func:`stream_feature_candidates` (the RANSAC candidates; a ``lax.scan``
 in the JAX package, not a kernel) and :func:`make_desc_features` are plain
 PyTorch on either device.
+
+The ring lane (:func:`ring_sweep`, the JAX package's ``ring_sweep``; no
+kernel of its own): the target's factor rows are sharded over the ranks
+of a :class:`~ghicp_tpu_torch.core.comm.Comm` (:class:`RingFeatures`),
+and one sweep is n steps of K5, each on this rank's rows against the
+target block it holds, the block then passed to the neighbour (the int8
+bit rows K5 reads, so nothing is unpacked again); the per-row top-2 is
+merged under (value desc, column asc) and the statistics summed.
 """
 from __future__ import annotations
 
@@ -134,6 +142,7 @@ class SweepResult(NamedTuple):
 
 STAT_FIELDS = ("cnt", "cd_sum", "cd_sumsq", "cd_max", "ed_max", "b_max",
                "fd_max")
+STAT_SUMS = STAT_FIELDS[:3]
 
 
 def to_words(packed: torch.Tensor) -> torch.Tensor:
@@ -211,10 +220,13 @@ def check_features(feats, what: str) -> None:
                         f"{type(feats).__name__}")
 
 
-def subset_rows(feats, idx: torch.Tensor):
-    """The source factor rows ``idx`` (targets unchanged)."""
+def subset_rows(feats, idx):
+    """The source factor rows ``idx`` (an index tensor or a slice; targets
+    unchanged); BSC factors, ring factors included, keep the three
+    source fields."""
     if isinstance(feats, NoFeatures):
-        return NoFeatures(n_rows=int(idx.shape[0]))
+        return NoFeatures(n_rows=len(range(feats.n_rows)[idx])
+                          if isinstance(idx, slice) else int(idx.shape[0]))
     if isinstance(feats, DescFeatures):
         return feats._replace(fs=feats.fs[idx].contiguous())
     return feats._replace(words_s=feats.words_s[:, idx].contiguous(),
@@ -298,12 +310,14 @@ def _col_block(cd, m, rows):
 def stream_sweep_plain(kp_s, kp_t, feats, mask_s, mask_t, prices, acol,
                        wed, wfd, scale, tc: int = PLAIN_TC,
                        col_side: bool = False,
-                       with_stats: bool = True) -> SweepResult:
+                       with_stats: bool = True,
+                       stats64: bool = False) -> SweepResult:
     """Plain PyTorch version of K5: column blocks of ``tc`` (the JAX
     package's ``stream_sweep_ref``), statistics summed in float64; the
     similarity lane when ``feats`` is a :class:`DescFeatures`, the none
     lane for :class:`NoFeatures`; ``col_side`` adds ``cmin`` / ``crow``;
-    ``with_stats=False`` returns NaN statistics."""
+    ``with_stats=False`` returns NaN statistics; ``stats64`` returns the
+    count and the two sums in float64 (the ring adds them up)."""
     S, C = kp_s.shape[0], kp_t.shape[0]
     dev = kp_s.device
     ks, kt = _factors(kp_s), _factors(kp_t)
@@ -333,8 +347,8 @@ def stream_sweep_plain(kp_s, kp_t, feats, mask_s, mask_t, prices, acol,
                 feats.fs, feats.ft[sl], feats.dim), wed, wfd, scale, True)
             fd = torch.zeros_like(ed)
         else:
-            fd = _ham_block(fs, feats.na, unpack_words(feats.words_t[sl]),
-                            feats.nb[sl])
+            fd = _ham_block(fs, feats.na,
+                            feats.bits_t[sl].to(torch.float32), feats.nb[sl])
             ed, cd = factor_cost(ks, kt[sl], fd, wed, wfd, scale)
         m = mask_s[:, None] & mask_t[None, sl]
         v = torch.where(m, -cd - prices[None, sl], NEG)
@@ -353,7 +367,8 @@ def stream_sweep_plain(kp_s, kp_t, feats, mask_s, mask_t, prices, acol,
         bmax = torch.maximum(bmax, torch.where(m, -cd, NEG).amax())
         fmax = torch.maximum(fmax, torch.where(m, fd, 0.0).amax())
     v1, j1, v2, j2 = state
-    f = lambda x: x.to(torch.float32)
+    f = (lambda x: x.to(torch.float64)) if stats64 else (
+        lambda x: x.to(torch.float32))
     cmin = crow = None
     if col_side:
         cmin = torch.cat([c for c, _ in col_parts])
@@ -363,7 +378,8 @@ def stream_sweep_plain(kp_s, kp_t, feats, mask_s, mask_t, prices, acol,
     if with_stats:
         return res
     nan = torch.full((), float("nan"), dtype=torch.float32, device=dev)
-    return res._replace(**{k: nan for k in STAT_FIELDS})
+    return res._replace(**{k: nan.to(res.cnt.dtype) if k in STAT_SUMS
+                           else nan for k in STAT_FIELDS})
 
 
 # ---------------------------------------------------------------------------
@@ -500,7 +516,8 @@ _TILED_PER_SM = 16
 def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
                       wfd, scale, col_side: bool = False,
                       with_stats: bool = True,
-                      target: Optional[SweepTarget] = None) -> SweepResult:
+                      target: Optional[SweepTarget] = None,
+                      stats64: bool = False) -> SweepResult:
     """Launch K5 on the card, the lane of ``feats``' type, with or without
     its column side; ``target`` (made by :func:`sweep_target` from these
     columns, factors and mask, else raises) skips redoing the target's
@@ -579,17 +596,20 @@ def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
         cmin = (colkey >> 32).to(torch.int32).view(f32)
         crow = colkey & _M32
     if with_stats:
-        tot = stats[:, :3].sum(dim=0).to(f32)
+        tot = stats[:, :3].sum(dim=0)
+        tot = tot if stats64 else tot.to(f32)
         mx = stats[:, 3:7].amax(dim=0).to(f32)
     else:
-        tot = mx = (target.nan,) * 4
+        tot = (target.nan.to(torch.float64) if stats64 else target.nan,) * 3
+        mx = (target.nan,) * 4
     return SweepResult(vf[0], vj[0], vf[1], vj[1], vf[2], tot[0], tot[1],
                        tot[2], mx[0], mx[1], mx[2], mx[3], cmin, crow)
 
 
 def stream_sweep(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed, wfd,
                  scale, col_side: bool = False, with_stats: bool = True,
-                 target: Optional[SweepTarget] = None) -> SweepResult:
+                 target: Optional[SweepTarget] = None,
+                 stats64: bool = False) -> SweepResult:
     """One matrix-free sweep: per-row top-2 of (b - p), vsel at ``acol``
     and the CD statistics.  kp_s [S, 3] / kp_t [C, 3] float32, centred by
     a common offset; ``prices`` [C]; ``acol`` [S] previous column, SINK or
@@ -602,16 +622,160 @@ def stream_sweep(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed, wfd,
     (:func:`sweep_target` of ``kp_t``, ``feats`` and ``mask_t``) carries
     what the kernel reads of the target, made once for many sweeps.  CUDA
     tensors run the kernel, CPU tensors the plain version (which needs no
-    ``target``)."""
+    ``target``).  ``stats64`` returns the count and the two sums in
+    float64."""
     check_features(feats, "stream_sweep")
     if isinstance(feats, NoFeatures) and feats.n_rows != kp_s.shape[0]:
         raise ValueError(f"stream_sweep: NoFeatures of {feats.n_rows} rows "
                          f"for {kp_s.shape[0]} source rows")
     args = (kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed, wfd, scale)
-    kw = dict(col_side=col_side, with_stats=with_stats)
+    kw = dict(col_side=col_side, with_stats=with_stats, stats64=stats64)
     if require_device(kp_s, "stream_sweep") == "cuda":
         return stream_sweep_cuda(*args, **kw, target=target)
     return stream_sweep_plain(*args, **kw)
+
+
+class RingFeatures(NamedTuple):
+    """The BSC factors of the ring lane on one rank: this rank's source
+    rows, and of the target the block of int8 bit rows the rank holds at
+    the start of a sweep (block r of ``C / n`` rows, the form K5 reads,
+    passed around the ring); the target's packed words and popcounts stay
+    replicated (the matched-pair gathers read the words, 1/14 of the
+    bits' bytes)."""
+
+    words_s: torch.Tensor   # [V, S_r, W] int32 source bits (this rank)
+    na: torch.Tensor        # [V, S_r] float32 popcounts
+    bits_s: torch.Tensor    # [V, S_r, 448] int8
+    bits_blk: torch.Tensor  # [C / n, 448] int8 target block r
+    words_t: torch.Tensor   # [C, W] int32, every rank
+    nb: torch.Tensor        # [C] float32, every rank
+
+
+def ring_features(feats: StreamFeatures, rows: slice, rank: int,
+                  n: int) -> RingFeatures:
+    """Rank ``rank`` of ``n``'s :class:`RingFeatures` from the whole
+    factors: its source ``rows`` and its target block."""
+    C = feats.bits_t.shape[0]
+    if C % n:
+        raise ValueError(f"column count {C} not divisible by {n} ranks")
+    c = C // n
+    src = subset_rows(feats, rows)
+    return RingFeatures(
+        words_s=src.words_s, na=src.na, bits_s=src.bits_s,
+        bits_blk=feats.bits_t[rank * c:(rank + 1) * c].contiguous(),
+        words_t=feats.words_t, nb=feats.nb)
+
+
+class RingTarget(NamedTuple):
+    """What every ring step reads of the replicated target, made once a
+    solve (:func:`ring_target`): the columns' factor rows, int32 mask,
+    words and popcounts on the card, sliced per step."""
+
+    kt: torch.Tensor
+    mt: torch.Tensor
+    wt: torch.Tensor
+    nb: torch.Tensor
+    n_sm: int
+    nan: torch.Tensor
+
+
+def ring_target(kp_t, ring: RingFeatures, mask_t) -> RingTarget:
+    C = kp_t.shape[0]
+    base = sweep_target(kp_t, NoFeatures(n_rows=0), mask_t)
+    W = ring.words_t.shape[1]
+    dev = kp_t.device
+    return RingTarget(kt=base.kt, mt=base.mt,
+                      wt=as_rows(ring.words_t, C, W, torch.int32, dev,
+                                 "words_t"),
+                      nb=as_rows(ring.nb, C, 0, torch.float32, dev, "nb"),
+                      n_sm=base.n_sm, nan=base.nan)
+
+
+def _ring_step(kp_s, kp_t, ring, mask_s, mask_t, prices, acol, blk, off,
+               rt: Optional[RingTarget]):
+    """One step's sweep arguments: the block's columns ``off`` ... as
+    views of the replicated target, the held bit rows ``blk``, and the
+    step's ``SweepTarget`` from those views (no unpacking)."""
+    sl = slice(off, off + blk.shape[0])
+    kpt, mt = kp_t[sl], mask_t[sl]
+    words, nb = (ring.words_t, ring.nb) if rt is None else (rt.wt, rt.nb)
+    sub = StreamFeatures(words_s=ring.words_s, words_t=words[sl],
+                         na=ring.na, nb=nb[sl], bits_s=ring.bits_s,
+                         bits_t=blk)
+    acl = torch.where((acol >= off) & (acol < sl.stop), acol - off, -1)
+    target = None
+    if rt is not None:
+        target = SweepTarget(kt=rt.kt[sl], mt=rt.mt[sl], lane=1, rows=blk,
+                             wt=sub.words_t, nb=sub.nb, n_sm=rt.n_sm,
+                             nan=rt.nan, key=_target_key(kpt, sub, mt))
+    return (kp_s, kpt, sub, mask_s, mt, prices[sl], acl), target
+
+
+def ring_sweep(kp_s, kp_t, ring: RingFeatures, mask_s, mask_t, prices,
+               acol, wed, wfd, scale, comm, with_stats: bool = True,
+               target: Optional[RingTarget] = None) -> SweepResult:
+    """One matrix-free sweep with the target's factor blocks rotated around
+    the ring of ``comm``'s ranks: step s sweeps this rank's rows against
+    block (rank + s) mod n with K5 (global column ids), while the held
+    block travels to rank - 1 (n - 1 transfers a
+    sweep: the last step keeps its block).  The top-2 merge keeps the
+    lowest column on ties, so the result is one sweep's over the whole
+    target; the count and sums are added in float64 (only their order
+    differs from one sweep's).  Hamming (BSC) lane, any row count.
+    ``target`` (:func:`ring_target`) is made once a solve; on the card
+    without one each sweep makes it."""
+    C = kp_t.shape[0]
+    c_blk = ring.bits_blk.shape[0]
+    n = comm.axis_size()
+    if c_blk * n != C:
+        raise ValueError(f"ring_sweep: {n} blocks of {c_blk} columns for "
+                         f"{C} columns")
+    S = kp_s.shape[0]
+    dev = kp_s.device
+    cuda = require_device(kp_s, "ring_sweep") == "cuda"
+    if cuda and target is None:
+        target = ring_target(kp_t, ring, mask_t)
+    acol = acol.to(torch.int64)
+    state = _top2_init(S, dev)
+    vsel = torch.full((S,), NEG, dtype=torch.float32, device=dev)
+    sums = maxs = None
+    blk = ring.bits_blk
+    for step in range(n):
+        pending = comm.ppermute_start(blk) if step < n - 1 else None
+        off = ((comm.axis_index() + step) % n) * c_blk
+        args, tg = _ring_step(kp_s, kp_t, ring, mask_s, mask_t, prices, acol,
+                              blk, off, target if cuda else None)
+        if cuda:
+            sw = stream_sweep_cuda(*args, wed, wfd, scale,
+                                   with_stats=with_stats, target=tg,
+                                   stats64=True)
+        else:
+            sw = stream_sweep_plain(*args, wed, wfd, scale,
+                                    with_stats=with_stats, stats64=True)
+        state = lex_merge_top2(state, (sw.v1, sw.j1 + off, sw.v2,
+                                       sw.j2 + off))
+        vsel = torch.maximum(vsel, sw.vsel)
+        s3 = torch.stack([sw.cnt, sw.cd_sum, sw.cd_sumsq])
+        m4 = torch.stack([sw.cd_max, sw.ed_max, sw.b_max, sw.fd_max])
+        sums = s3 if sums is None else sums + s3
+        maxs = m4 if maxs is None else torch.maximum(maxs, m4)
+        if pending is not None:
+            blk = pending.wait()
+    if cuda:
+        count_launch("ring_sweep")
+    v1, j1, v2, j2 = state
+    tot = sums.to(torch.float32)
+    return SweepResult(v1, j1, v2, j2, vsel, tot[0], tot[1], tot[2],
+                       *maxs.unbind())
+
+
+def ring_selected(kp_s, kp_t, ring: RingFeatures, tgt_idx, wed, wfd, scale):
+    """(cd_sel, ed_sel, fd_sel) at the matched pairs from the replicated
+    packed words (no ring traffic): :func:`stream_selected`."""
+    feats = StreamFeatures(words_s=ring.words_s, words_t=ring.words_t,
+                           na=ring.na, nb=ring.nb, bits_s=ring.bits_s,
+                           bits_t=ring.bits_blk)
+    return stream_selected(kp_s, kp_t, feats, tgt_idx, wed, wfd, scale)
 
 
 def stream_selected(kp_s, kp_t, feats, tgt_idx, wed, wfd, scale):

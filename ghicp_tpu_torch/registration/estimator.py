@@ -12,19 +12,23 @@
 
 Both take padded correspondence tensors plus a weight vector, with any
 leading batch axes (the batched engine's pair axis); an all-zero weight
-vector returns the identity.
+vector returns the identity.  Under a distributed ``comm`` the
+correspondences are this rank's rows: the weight sums, centroids, the 3x3
+cross-covariance (or the yaw's two sums) are summed over the ranks before
+the solve, which then runs the same on every rank.
 """
 from __future__ import annotations
 
 import torch
 
 from ghicp_tpu_torch.core import transform as tf
+from ghicp_tpu_torch.core.comm import LOCAL, Comm
 
 
-def _weighted_centroids(src, dst, w):
-    wsum = torch.clamp(w.sum(dim=-1), min=1e-12)
-    cs = (src * w[..., None]).sum(dim=-2) / wsum[..., None]
-    cd = (dst * w[..., None]).sum(dim=-2) / wsum[..., None]
+def _weighted_centroids(src, dst, w, comm: Comm = LOCAL):
+    wsum = torch.clamp(comm.psum(w.sum(dim=-1)), min=1e-12)
+    cs = comm.psum((src * w[..., None]).sum(dim=-2)) / wsum[..., None]
+    cd = comm.psum((dst * w[..., None]).sum(dim=-2)) / wsum[..., None]
     return cs, cd, wsum
 
 
@@ -47,27 +51,29 @@ def rotation_svd(H: torch.Tensor) -> torch.Tensor:
 
 
 def kabsch_6dof(src: torch.Tensor, dst: torch.Tensor,
-                weights: torch.Tensor) -> torch.Tensor:
+                weights: torch.Tensor, comm: Comm = LOCAL) -> torch.Tensor:
     """The rigid T minimizing sum_i w_i |T(s_i) - d_i|^2 ([..., 4, 4]
     float32 for [..., N, 3] points and [..., N] weights)."""
     w = weights.to(torch.float32)
-    cs, cd, wsum = _weighted_centroids(src, dst, w)
+    cs, cd, wsum = _weighted_centroids(src, dst, w, comm)
     sc = (src - cs[..., None, :]) * w[..., None]
-    H = sc.mT @ (dst - cd[..., None, :])
+    H = comm.psum(sc.mT @ (dst - cd[..., None, :]))
     R = rotation_svd(H)
     t = cd - (R @ cs[..., None])[..., 0]
     return _or_identity(tf.from_rt(R, t), wsum)
 
 
 def yaw_4dof(src: torch.Tensor, dst: torch.Tensor,
-             weights: torch.Tensor) -> torch.Tensor:
+             weights: torch.Tensor, comm: Comm = LOCAL) -> torch.Tensor:
     """Closed-form leveled (yaw-only) rigid estimate."""
     w = weights.to(torch.float32)
-    cs, cd, wsum = _weighted_centroids(src, dst, w)
+    cs, cd, wsum = _weighted_centroids(src, dst, w, comm)
     s = src - cs[..., None, :]
     d = dst - cd[..., None, :]
-    num = (w * (s[..., 0] * d[..., 1] - s[..., 1] * d[..., 0])).sum(dim=-1)
-    den = (w * (s[..., 0] * d[..., 0] + s[..., 1] * d[..., 1])).sum(dim=-1)
+    num = comm.psum((w * (s[..., 0] * d[..., 1] - s[..., 1] * d[..., 0]))
+                    .sum(dim=-1))
+    den = comm.psum((w * (s[..., 0] * d[..., 0] + s[..., 1] * d[..., 1]))
+                    .sum(dim=-1))
     R = tf.rotz(torch.atan2(num, den)).to(torch.float32)
     t = cd - (R @ cs[..., None])[..., 0]
     return _or_identity(tf.from_rt(R, t), wsum)
@@ -114,8 +120,8 @@ def similarity_3d_7p(src: torch.Tensor, dst: torch.Tensor,
 
 
 def estimate(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor,
-             dof: int = 6) -> torch.Tensor:
+             dof: int = 6, comm: Comm = LOCAL) -> torch.Tensor:
     """Dispatch on degrees of freedom (4 = yaw-only, 6 = full)."""
     if dof == 4:
-        return yaw_4dof(src, dst, weights)
-    return kabsch_6dof(src, dst, weights)
+        return yaw_4dof(src, dst, weights, comm)
+    return kabsch_6dof(src, dst, weights, comm)

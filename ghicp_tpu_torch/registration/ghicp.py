@@ -42,6 +42,18 @@ to the next that lets statistics-free iterations skip sweep 0 (the other
 blends take no such shortcut, as in the JAX package); every NN / NNR
 iteration one K5 sweep at zero prices (NNR with its column side).
 
+Under a distributed ``comm`` (:mod:`ghicp_tpu_torch.core.comm`; the
+entry points are in :mod:`ghicp_tpu_torch.shard`) each rank holds a row
+shard of the source keypoints (and of the FD or the source factors) and
+every cross-row reduction of an iteration goes through the ranks, as in
+the JAX package's body: the CD statistics, the auction's bids and owners,
+the matched-pair sums, the estimator's cross-covariance, the motion bound;
+K3 is off there, as in the JAX gate.  Every value the host loop reads
+(``converged``, the auction's open counts) is then the same on every rank.
+With :class:`~ghicp_tpu_torch.ops.stream_kernel.RingFeatures` the
+streaming lane sweeps through the ring (``ring_sweep``: the target's
+factor blocks rotate over the ranks; BSC and KM only).
+
 The loop is a host loop with one read of ``converged`` per iteration.
 :func:`ghicp_register` stops there, as the JAX package's does.
 :func:`ghicp_register_chunked` then runs, after a KM matching, the
@@ -59,6 +71,7 @@ import numpy as np
 import torch
 
 from ghicp_tpu_torch.core import transform as tf
+from ghicp_tpu_torch.core.comm import LOCAL, Comm
 from ghicp_tpu_torch.core.config import (CorrespondenceType, FeatureType,
                                          GHICPConfig)
 from ghicp_tpu_torch.core.device import resolve_device
@@ -69,7 +82,7 @@ from ghicp_tpu_torch.matching.cost import (blend_bsc, blend_fpfh,
                                            blend_none, bsc_penalty,
                                            euclidean_matrix, mult_penalty,
                                            none_penalty)
-from ghicp_tpu_torch.matching.matchers import (MatchResult, nn_match,
+from ghicp_tpu_torch.matching.matchers import (BIG_ROW, MatchResult, nn_match,
                                                nnr_match)
 from ghicp_tpu_torch.matching.stream_auction import (StreamCarry, carry_init,
                                                      stream_solve)
@@ -78,8 +91,10 @@ from ghicp_tpu_torch.ops.auction_rounds import (WarmInputs,
                                                 gs_tile_rows)
 from ghicp_tpu_torch.ops.cost_kernel import (CostTarget, fused_benefit,
                                              mult_cost)
-from ghicp_tpu_torch.ops.stream_kernel import (stream_selected, stream_sweep,
-                                               sweep_target)
+from ghicp_tpu_torch.ops.stream_kernel import (RingFeatures, ring_selected,
+                                               ring_sweep, ring_target,
+                                               stream_selected, stream_sweep,
+                                               subset_rows, sweep_target)
 from ghicp_tpu_torch.registration.estimator import estimate
 
 
@@ -197,17 +212,19 @@ def mult_drift(d_ed, i_eff, fd_min):
     return d_ed * torch.exp(k_next * torch.log(1.0 / fd_min))
 
 
-def masked_median_log(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+def masked_median_log(x: torch.Tensor, m: torch.Tensor,
+                      comm: Comm = LOCAL) -> torch.Tensor:
     """Median of ``x`` over mask ``m`` along the last axis via a 128-bin
     log10 histogram over 1e-4..1e3 (resolution one bin, ~13%); one
-    histogram per leading index (per pair on the batched engine)."""
+    histogram per leading index (per pair on the batched engine).  The
+    integer bin counts are summed over the ranks, exactly."""
     lo, hi, nb = -4.0, 3.0, 128
     lx = torch.log10(torch.clamp(x, min=1e-6))
     bi = torch.clamp(((lx - lo) / (hi - lo) * nb).to(torch.int64), 0, nb - 1)
     lead = x.shape[:-1]
     n_hist = math.prod(lead)
     off = torch.arange(n_hist, device=x.device).reshape(lead + (1,)) * nb
-    hist = torch.bincount((bi + off)[m], minlength=n_hist * nb)
+    hist = comm.psum(torch.bincount((bi + off)[m], minlength=n_hist * nb))
     csum = torch.cumsum(hist.reshape(lead + (nb,)), -1)
     n = csum[..., -1:]
     med_bin = torch.argmax((csum >= (n + 1) // 2).to(torch.int32), dim=-1)
@@ -220,15 +237,15 @@ def _rows_of(pts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return pts.gather(-2, idx[..., None].expand(idx.shape + (3,)))
 
 
-def matched_stats(src_pts, tgt_pts, fsel, tgt_idx, w):
+def matched_stats(src_pts, tgt_pts, fsel, tgt_idx, w, comm: Comm = LOCAL):
     """RMSE / FDM / FDstd over matched pairs (per pair with a pair
-    axis)."""
+    axis; over every rank's rows under a distributed ``comm``)."""
     t = _rows_of(tgt_pts, tgt_idx)
-    n = torch.clamp(w.sum(dim=-1), min=1.0)
-    se = (w * ((src_pts - t) ** 2).sum(dim=-1)).sum(dim=-1)
+    n = torch.clamp(comm.psum(w.sum(dim=-1)), min=1.0)
+    se = comm.psum((w * ((src_pts - t) ** 2).sum(dim=-1)).sum(dim=-1))
     rmse = torch.sqrt(se / n)
-    s1 = (w * fsel).sum(dim=-1)
-    s2 = (w * fsel * fsel).sum(dim=-1)
+    s1 = comm.psum((w * fsel).sum(dim=-1))
+    s2 = comm.psum((w * fsel * fsel).sum(dim=-1))
     fdm = s1 / n
     fdstd = torch.sqrt(torch.clamp(s2 / n - fdm * fdm, min=0.0))
     return rmse, fdm, fdstd
@@ -298,11 +315,16 @@ def _pair_of(st: _State) -> _State:
 
 
 def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
-              config: GHICPConfig, stream=None):
+              config: GHICPConfig, stream=None, comm: Comm = LOCAL,
+              total_rows: Optional[int] = None):
     """One GH-ICP iteration as a function ``_State -> _State``; with
-    ``stream`` (factors, ``fd`` None) on the streaming lane."""
+    ``stream`` (factors, ``fd`` None) on the streaming lane.  Under a
+    distributed ``comm``, ``mask_s`` (and ``fd``, the source factors and
+    the state's rows) are this rank's rows of ``total_rows``."""
     S, T = mask_s.shape[0], kp_t.shape[0]
+    total_rows = total_rows or S
     use_stream = stream is not None
+    ring = isinstance(stream, RingFeatures)
     mult = config.feature in MULT_FEATURES
     bsc = config.feature == FeatureType.BSC
     none = config.feature == FeatureType.NONE
@@ -311,28 +333,34 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
     kernel_lane = (not use_stream and km and config.fused_cost_kernel
                    and S % 128 == 0 and T % 128 == 0)
     _check_lane(S, T, use_stream)
+    if ring and not (km and bsc):
+        raise ValueError("the ring lane takes BSC features and KM matching")
     if not use_stream and not kernel_lane:
         xla = make_batched_body(kp_t[None], mask_s[None], mask_t[None],
-                                fd[None], [bbx_magnitude], config)
+                                fd[None], [bbx_magnitude], config, comm,
+                                total_rows)
         one = np.ones(1, bool)
         return lambda st: _pair_of(xla(_pairs_of(st), one))
     dev = kp_t.device
     scale = _f32(config.scale_factor * _f32(bbx_magnitude))
     scale_t = _f(scale, dev)
-    ns = mask_s.to(torch.float32).sum()
+    ns = comm.psum(mask_s.to(torch.float32).sum())
     nt = mask_t.to(torch.float32).sum()
     rows = torch.arange(S, device=dev)
+    gid = comm.axis_index() * S + rows      # global row ids
     # centre both keypoint sets by a common offset so the norm-expansion
     # ED stays float32-accurate at 100 m coordinates
     mid = 0.5 * (torch.where(mask_t[:, None], kp_t, 3e38).amin(dim=0)
                  + torch.where(mask_t[:, None], kp_t, -3e38).amax(dim=0))
+    if use_stream:
+        mid = comm.pmax(mid)     # one offset on every rank
     kp_t_c = torch.where(mask_t[:, None], kp_t - mid[None, :], 0.0)
     # the kernels' FD and benefit store: bf16, or float32 under
     # auction_bf16=False (the matched-pair gathers read the same copy)
     fd_b = None if use_stream else fd.to(
         torch.bfloat16 if config.auction_bf16 else torch.float32)
-    fd_min = None if use_stream or not mult else fd_min_of(fd, mask_s,
-                                                           mask_t)
+    fd_min = None if use_stream or not mult else comm.pmin(
+        fd_min_of(fd, mask_s, mask_t))
 
     def penalty_of(st, it_eff, wed, wfd, mean, std):
         """The feature's penalty schedule from the CD statistics."""
@@ -345,7 +373,8 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
                            st.para1, st.para2, scale_t, _f(wed, dev),
                            _f(wfd, dev), config.penalty_initial)
     ts_gs = gs_tile_rows(T)
-    use_warm_kernel = not use_stream and warm_gate(S, T, config)
+    use_warm_kernel = (not use_stream and not comm.distributed
+                       and warm_gate(S, T, config))
     # what every warm solve of this run reads unchanged (target factors,
     # masks, FD, the kernel's scratch), made once here
     warm_in = (WarmInputs(kp_t_c, fd_b, mask_s, mask_t, ts_gs)
@@ -355,7 +384,10 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
                 if not use_stream and dev.type == "cuda" else None)
     # what every streaming sweep of this run reads of the target, made once
     stream_tgt = (sweep_target(kp_t_c, stream, mask_t)
-                  if use_stream and dev.type == "cuda" else None)
+                  if use_stream and not ring and dev.type == "cuda"
+                  else None)
+    ring_tgt = (ring_target(kp_t_c, stream, mask_t)
+                if ring and dev.type == "cuda" else None)
 
     def full_solve(st, it_eff, wed, wfd, budget, kps_c, p_mid):
         (b, cnt, s1, s2, _cm, ed_max_f, b_max, v1_mid,
@@ -363,6 +395,10 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
                                    wfd, scale, p_defl=p_mid, acol0=st.acol,
                                    with_stats=not bsc or not it_eff > 1.0,
                                    mult_blend=mult, target=cost_tgt)
+        if comm.distributed:
+            cnt, s1, s2 = comm.psum(torch.stack([cnt, s1, s2])).unbind()
+            b_max, ed_max_f = comm.pmax(torch.stack([b_max,
+                                                     ed_max_f])).unbind()
         n_valid = torch.clamp(cnt, min=1.0)
         mean = s1 / n_valid
         std = torch.sqrt(torch.clamp(s2 / n_valid - mean * mean, min=0.0))
@@ -374,7 +410,8 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
             price_uncertainty=st.price_unc + dpen,
             use_round_kernel=config.auction_round_kernel,
             n_phases=config.auction_phases, b_max=b_max, acol0=st.acol,
-            hint_v1=v1_mid + dpen, hint_vsel=vsel_mid, keep_slack_extra=dpen)
+            hint_v1=v1_mid + dpen, hint_vsel=vsel_mid, keep_slack_extra=dpen,
+            comm=comm, total_rows=total_rows)
         return (ares.match, ares.energy, ares.rounds, ares.prices, ares.acol,
                 ares.cd_sel, penalty, ed_max_f, ares.punc)
 
@@ -388,7 +425,7 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
             owner0 >= 0, torch.clamp(st.prices - (st.price_unc + dpen),
                                      min=0.0), 0.0)
         jc0 = torch.where(real0, st.acol, 0)
-        own_ok = real0 & (owner0[jc0] == rows)
+        own_ok = real0 & (owner0[jc0] == gid)
         acol_real = torch.where(real0, st.acol, -1)
         sunk0 = (st.acol == SINK).to(torch.int32)
         # sink and dpen stay on the device: the kernel reads them there
@@ -452,6 +489,20 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
         sf = it_eff > 1.0
         if config.stream_refresh_every > 0:
             sf = sf and st.it % config.stream_refresh_every != 0
+        ring_fns = {}
+        if ring:
+            # the ring lane's sweeps rotate the target blocks (the compact
+            # form gathers the open local rows, the ring still turns whole)
+            ring_fns = dict(
+                sweep_fn=lambda p, ac, with_stats=False: ring_sweep(
+                    kps_c, kp_t_c, stream, mask_s, mask_t, p, ac, wed, wfd,
+                    scale, comm, with_stats, target=ring_tgt),
+                sweep_sub_fn=lambda idx, sub_mask, p, ac: ring_sweep(
+                    kps_c[idx], kp_t_c, subset_rows(stream, idx), sub_mask,
+                    mask_t, p, ac, wed, wfd, scale, comm, False,
+                    target=ring_tgt),
+                select_fn=lambda jc: ring_selected(kps_c, kp_t_c, stream,
+                                                   jc, wed, wfd, scale))
         return stream_solve(
             kps_c, kp_t_c, stream, mask_s, mask_t, wed, wfd, scale,
             lambda mean, std: penalty_of(st, it_eff, wed, wfd, mean, std),
@@ -461,7 +512,7 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
             pen_prev=st.pen_prev, carry=st.scarry if fast else None,
             stats_free=sf and fast, open_cap=config.stream_open_cap,
             compact_extra_sweeps=config.stream_compact_budget,
-            target=stream_tgt)
+            target=stream_tgt, comm=comm, total_rows=total_rows, **ring_fns)
 
     zero_p = torch.zeros((T,), dtype=torch.float32, device=dev)
     no_acol = torch.full((S,), -1, dtype=torch.int64, device=dev)
@@ -475,22 +526,27 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
         sw = stream_sweep(kps_c, kp_t_c, stream, mask_s, mask_t, zero_p,
                           no_acol, wed, wfd, scale, col_side=nnr,
                           target=stream_tgt)
-        n_valid = torch.clamp(sw.cnt, min=1.0)
-        mean = sw.cd_sum / n_valid
-        std = torch.sqrt(torch.clamp(sw.cd_sumsq / n_valid - mean * mean,
-                                     min=0.0))
+        cnt, s1, s2 = comm.psum(torch.stack([sw.cnt, sw.cd_sum,
+                                             sw.cd_sumsq])).unbind()
+        n_valid = torch.clamp(cnt, min=1.0)
+        mean = s1 / n_valid
+        std = torch.sqrt(torch.clamp(s2 / n_valid - mean * mean, min=0.0))
         penalty = penalty_of(st, it_eff, wed, wfd, mean, std)
         mincd = -sw.v1
         ok = mask_s & (sw.v1 > -1.0e38)
         if nnr:
-            ok = ok & (sw.crow[sw.j1] == rows)
+            # the lowest global row at each column's minimum over the ranks
+            cmin = comm.pmin(sw.cmin)
+            crow = torch.where(sw.crow < BIG_ROW, sw.crow + gid[0], BIG_ROW)
+            tv = comm.pmin(torch.where(sw.cmin <= cmin, crow, BIG_ROW))
+            ok = ok & (tv[sw.j1] == gid)
         else:
             ok = ok & (mincd < penalty)
         w = ok.to(torch.float32)
         fsel = stream_selected(kps_c, kp_t_c, stream, sw.j1, wed, wfd,
                                scale)[2]
-        return (MatchResult(tgt_idx=sw.j1, w=w, n_matches=w.sum()), fsel,
-                mincd, penalty, sw.ed_max)
+        return (MatchResult(tgt_idx=sw.j1, w=w, n_matches=comm.psum(w.sum())),
+                fsel, mincd, penalty, comm.pmax(sw.ed_max))
 
     def prepare(st):
         it_eff = _f32(st.it + st.it_shift)
@@ -505,8 +561,8 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
         real0 = (st.acol >= 0) & (st.acol < T)
         owner0 = torch.full((T + 1,), -1, dtype=torch.int64, device=dev)
         owner0.scatter_reduce_(0, torch.where(real0, st.acol, T),
-                               torch.where(real0, rows, -1), "amax")
-        return it_eff, wed, wfd, budget, kps_c, owner0[:T], real0
+                               torch.where(real0, gid, -1), "amax")
+        return it_eff, wed, wfd, budget, kps_c, comm.pmax(owner0[:T]), real0
 
     def warm_kernel_args(st: _State):
         """(args, kwargs) of the warm fused kernel for a warm solve from
@@ -543,8 +599,9 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
               ed_max, punc_new, fsel, sres=None):
         w = match.w
         tgt_idx = match.tgt_idx
-        cor = w.sum()
-        rmse, fdm, fdstd = matched_stats(st.kps, kp_t, fsel, tgt_idx, w)
+        cor = comm.psum(w.sum())
+        rmse, fdm, fdstd = matched_stats(st.kps, kp_t, fsel, tgt_idx, w,
+                                         comm)
         iou = cor / torch.clamp(ns + nt - cor, min=1.0)
         tgt_pts = kp_t[tgt_idx]
         w_est = w
@@ -553,24 +610,27 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
         if config.confidence_weighting and km:
             margin = torch.clamp(penalty - cd_sel, min=0.0)
             margin = torch.where(w > 0, margin, 0.0)
-            msum = torch.clamp(margin.sum(), min=1e-12)
-            nw = torch.clamp(w.sum(), min=1.0)
+            msum = torch.clamp(comm.psum(margin.sum()), min=1e-12)
+            nw = torch.clamp(comm.psum(w.sum()), min=1.0)
             w_est = margin * (nw / msum)
-        rt_step = estimate(st.kps, tgt_pts, w_est, dof=config.reg_dof)
+        rt_step = estimate(st.kps, tgt_pts, w_est, dof=config.reg_dof,
+                           comm=comm)
         for _ in range(config.robust_irls_rounds if km else 0):
             resid = torch.linalg.norm(tf.apply(rt_step, st.kps) - tgt_pts,
                                       dim=-1)
-            rscale = masked_median_log(resid, w_est > 0)
+            rscale = masked_median_log(resid, w_est > 0, comm)
             c = config.robust_trim_c * rscale + 1e-12
             u = torch.clamp(resid / c, max=1.0)
             wr = w_est * (1.0 - u * u) ** 2
-            rt_step = estimate(st.kps, tgt_pts, wr, dof=config.reg_dof)
+            rt_step = estimate(st.kps, tgt_pts, wr, dof=config.reg_dof,
+                               comm=comm)
         R, t = tf.rotation(rt_step), tf.translation(rt_step)
         ang = tf.euler_deg_zyx(R)
         small = (torch.all(torch.abs(t) < config.converge_translation)
                  & torch.all(torch.abs(ang) < config.converge_rotation))
         kps_new = tf.apply(rt_step, st.kps)
-        se_after = (w * ((kps_new - tgt_pts) ** 2).sum(dim=-1)).sum()
+        se_after = comm.psum((w * ((kps_new - tgt_pts) ** 2).sum(dim=-1))
+                             .sum())
         rmse_after = torch.sqrt(se_after / torch.clamp(cor, min=1.0))
         ratio = config.weight_adjustment_ratio
         est = config.estimated_overlap
@@ -593,8 +653,8 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
         flags = torch.stack([cor < config.min_cor, small]).cpu()
         converged = st.converged or bool(flags[0]) or bool(flags[1])
         matches = torch.where(w > 0, tgt_idx, -1)
-        max_disp = torch.where(mask_s, torch.linalg.norm(kps_new - st.kps,
-                                                         dim=-1), 0.0).amax()
+        max_disp = comm.pmax(torch.where(
+            mask_s, torch.linalg.norm(kps_new - st.kps, dim=-1), 0.0).amax())
         d_ed = scale_t * max_disp
         r = config.weight_changing_rate
         i_eff = i + st.it_shift
@@ -632,7 +692,8 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
 
 
 def make_batched_body(kp_t, mask_s, mask_t, fd, bbx_magnitude,
-                      config: GHICPConfig):
+                      config: GHICPConfig, comm: Comm = LOCAL,
+                      total_rows: Optional[int] = None):
     """One GH-ICP iteration of the XLA lane over a leading pair axis, as a
     function ``(_State, active) -> _State``: kp_t [P, T, 3], masks [P, S] /
     [P, T], fd [P, S, T], ``bbx_magnitude`` P host floats; ``active`` [P]
@@ -640,18 +701,21 @@ def make_batched_body(kp_t, mask_s, mask_t, fd, bbx_magnitude,
     their state.  Per pair: ED and the feature's blend with its
     CD-statistics penalty, the auction with the price and assignment warm
     start (or the NN / NNR matcher, which leaves prices and assignment as
-    they are), then the same tail as :func:`make_body`."""
+    they are), then the same tail as :func:`make_body`.  Under a
+    distributed ``comm`` (one pair) the rows are this rank's of
+    ``total_rows``."""
     P, S = mask_s.shape
     T = kp_t.shape[1]
     dev = kp_t.device
     fd = fd.to(torch.float32)
     mult = config.feature in MULT_FEATURES
     km = config.correspondence == CorrespondenceType.KM
-    fd_min = fd_min_of(fd, mask_s, mask_t) if mult and km else None
+    fd_min = (comm.pmin(fd_min_of(fd, mask_s, mask_t)) if mult and km
+              else None)
     scale = torch.tensor([_f32(config.scale_factor * _f32(x))
                           for x in bbx_magnitude], device=dev)
     pair_mask = mask_s[:, :, None] & mask_t[:, None, :]
-    ns = mask_s.to(torch.float32).sum(dim=-1)
+    ns = comm.psum(mask_s.to(torch.float32).sum(dim=-1))
     nt = mask_t.to(torch.float32).sum(dim=-1)
     warm_budget = (config.auction_warm_rounds > 0
                    and S >= config.auction_warm_min_rows)
@@ -667,15 +731,16 @@ def make_batched_body(kp_t, mask_s, mask_t, fd, bbx_magnitude,
         if mult:
             cost = blend_fpfh(ed, fd, mask_s, mask_t,
                               torch.from_numpy(it_eff), st.rms, st.para1,
-                              st.para2, scale, config.penalty_initial)
+                              st.para2, scale, config.penalty_initial, comm)
         elif config.feature == FeatureType.NONE:
-            cost = blend_none(ed, mask_s, mask_t)
+            cost = blend_none(ed, mask_s, mask_t, comm)
         else:
             cost = blend_bsc(ed, fd, mask_s, mask_t,
                              torch.from_numpy(it_eff), st.rms, st.fdm,
                              st.fdstd, st.para1, st.para2, scale, r,
-                             config.penalty_initial)
-        ed_max = ed.masked_fill_(~pair_mask, 0.0).amax(dim=(-2, -1))
+                             config.penalty_initial, comm)
+        ed_max = comm.pmax(ed.masked_fill_(~pair_mask, 0.0).amax(
+            dim=(-2, -1)))
         del ed
         penalty = cost.penalty
         if km:
@@ -687,14 +752,15 @@ def make_batched_body(kp_t, mask_s, mask_t, fd, bbx_magnitude,
                 quantize_bf16=config.auction_bf16,
                 use_round_kernel=config.auction_round_kernel,
                 n_phases=config.auction_phases, acol0=st.acol,
-                keep_slack_extra=dpen, active=active)
+                keep_slack_extra=dpen, active=active, comm=comm,
+                total_rows=total_rows)
             match, cd_sel, energy = ares.match, ares.cd_sel, ares.energy
             rounds, prices, acol, punc = (ares.rounds.to(dev), ares.prices,
                                           ares.acol, ares.punc)
         else:
-            match = (nn_match(cost.cd, penalty, mask_s, mask_t)
+            match = (nn_match(cost.cd, penalty, mask_s, mask_t, comm)
                      if config.correspondence == CorrespondenceType.NN
-                     else nnr_match(cost.cd, mask_s, mask_t))
+                     else nnr_match(cost.cd, mask_s, mask_t, comm))
             cd_sel = cost.cd.gather(-1, match.tgt_idx[..., None])[..., 0]
             energy = torch.zeros((P,), dtype=torch.float32, device=dev)
             rounds = torch.zeros((P,), dtype=torch.int64, device=dev)
@@ -702,33 +768,37 @@ def make_batched_body(kp_t, mask_s, mask_t, fd, bbx_magnitude,
             punc = torch.zeros_like(st.price_unc)
         del cost
         w, tgt_idx = match.w, match.tgt_idx
-        cor = w.sum(dim=-1)
+        cor = comm.psum(w.sum(dim=-1))
         fsel = fd.gather(-1, tgt_idx[..., None])[..., 0]
-        rmse, fdm, fdstd = matched_stats(st.kps, kp_t, fsel, tgt_idx, w)
+        rmse, fdm, fdstd = matched_stats(st.kps, kp_t, fsel, tgt_idx, w,
+                                         comm)
         iou = cor / torch.clamp(ns + nt - cor, min=1.0)
         tgt_pts = _rows_of(kp_t, tgt_idx)
         w_est = w
         if config.confidence_weighting and km:
             margin = torch.clamp(penalty[:, None] - cd_sel, min=0.0)
             margin = torch.where(w > 0, margin, 0.0)
-            msum = torch.clamp(margin.sum(dim=-1), min=1e-12)
-            nw = torch.clamp(w.sum(dim=-1), min=1.0)
+            msum = torch.clamp(comm.psum(margin.sum(dim=-1)), min=1e-12)
+            nw = torch.clamp(comm.psum(w.sum(dim=-1)), min=1.0)
             w_est = margin * (nw / msum)[:, None]
-        rt_step = estimate(st.kps, tgt_pts, w_est, dof=config.reg_dof)
+        rt_step = estimate(st.kps, tgt_pts, w_est, dof=config.reg_dof,
+                           comm=comm)
         for _ in range(config.robust_irls_rounds if km else 0):
             resid = torch.linalg.norm(tf.apply(rt_step, st.kps) - tgt_pts,
                                       dim=-1)
-            rscale = masked_median_log(resid, w_est > 0)
+            rscale = masked_median_log(resid, w_est > 0, comm)
             c = config.robust_trim_c * rscale + 1e-12
             u = torch.clamp(resid / c[:, None], max=1.0)
             wr = w_est * (1.0 - u * u) ** 2
-            rt_step = estimate(st.kps, tgt_pts, wr, dof=config.reg_dof)
+            rt_step = estimate(st.kps, tgt_pts, wr, dof=config.reg_dof,
+                               comm=comm)
         ang = tf.euler_deg_zyx(tf.rotation(rt_step))
         small = ((torch.abs(tf.translation(rt_step))
                   < config.converge_translation).all(dim=-1)
                  & (torch.abs(ang) < config.converge_rotation).all(dim=-1))
         kps_new = tf.apply(rt_step, st.kps)
-        se_after = (w * ((kps_new - tgt_pts) ** 2).sum(dim=-1)).sum(dim=-1)
+        se_after = comm.psum((w * ((kps_new - tgt_pts) ** 2).sum(dim=-1))
+                             .sum(dim=-1))
         rmse_after = torch.sqrt(se_after / torch.clamp(cor, min=1.0))
         est = config.estimated_overlap
         iou_safe = torch.clamp(iou, min=1e-9)
@@ -747,9 +817,9 @@ def make_batched_body(kp_t, mask_s, mask_t, fd, bbx_magnitude,
             buf[pa, ia] = val[pa].to(buf.dtype)
         flags = torch.stack([cor < config.min_cor, small]).cpu().numpy()
         converged = st.converged | (active & (flags[0] | flags[1]))
-        max_disp = torch.where(mask_s, torch.linalg.norm(kps_new - st.kps,
-                                                         dim=-1),
-                               0.0).amax(dim=-1)
+        max_disp = comm.pmax(torch.where(
+            mask_s, torch.linalg.norm(kps_new - st.kps, dim=-1),
+            0.0).amax(dim=-1))
         d_ed = scale * max_disp
         i_eff = st.it + st.it_shift
         if fd_min is not None:
@@ -836,9 +906,11 @@ def _on_device(dev, kp_s, mask_s, kp_t, mask_t):
 
 
 def _loop(kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude, config,
-          init_transform, it_shift, device, iteration_callback, stream):
+          init_transform, it_shift, device, iteration_callback, stream,
+          comm: Comm = LOCAL, total_rows: Optional[int] = None):
     """Inputs on ``device`` and the GH-ICP loop run to convergence (or
-    ``max_iterations``).  Returns (state, kp_t, mask_s, mask_t, fd, bbx,
+    ``max_iterations``); under a distributed ``comm`` on this rank's rows
+    of ``total_rows``.  Returns (state, kp_t, mask_s, mask_t, fd, bbx,
     stream) on the device."""
     dev = resolve_device(device)
     to = lambda x: torch.as_tensor(x).to(dev)
@@ -852,7 +924,8 @@ def _loop(kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude, config,
     T0 = None if init_transform is None else to(init_transform)
     bbx = float(bbx_magnitude)
     state = initial_state(kp_s, kp_t.shape[0], config, T0, it_shift)
-    body = make_body(kp_t, mask_s, mask_t, fd, bbx, config, stream)
+    body = make_body(kp_t, mask_s, mask_t, fd, bbx, config, stream, comm,
+                     total_rows)
 
     def report():
         iteration_callback(state.it, state.kps.cpu().numpy(),
@@ -952,3 +1025,42 @@ def ghicp_register_batched(kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude,
         success=state.rmse_after < 1.5 * cfg.non_max_radius,
         final_rmse=state.rmse_after, metrics=state.metrics,
         matches=state.matches)
+
+
+def ghicp_register_batched_sharded(kp_s, mask_s, kp_t, mask_t, fd,
+                                   bbx_magnitude, config: GHICPConfig,
+                                   comm: Comm, init_transform=None,
+                                   it_shift: float = 0.0, device=None
+                                   ) -> GHICPResult:
+    """P pairs on a leading axis (as :func:`ghicp_register_batched`) with
+    the pairs split over ``comm``'s ranks: rank r takes pairs [r P / n,
+    (r + 1) P / n) and runs each through the single-pair engine
+    (:func:`ghicp_register`, kernels on: no collective crosses a pair),
+    then every result field is all-gathered in pair order.  P must be a
+    multiple of the rank count.  No final matching.  Returns a
+    :class:`GHICPResult` of [P] tensors on every rank."""
+    P = len(kp_s)
+    n = comm.axis_size()
+    if P % n:
+        raise ValueError(f"pair count {P} not divisible by {n} ranks")
+    dev = resolve_device(device)
+    k = P // n
+    bbx = [float(x) for x in torch.as_tensor(bbx_magnitude).reshape(-1)]
+    outs = []
+    for i in range(comm.axis_index() * k, (comm.axis_index() + 1) * k):
+        outs.append(ghicp_register(
+            kp_s[i], mask_s[i], kp_t[i], mask_t[i], fd[i], bbx[i], config,
+            init_transform=(None if init_transform is None
+                            else init_transform[i]),
+            it_shift=it_shift, device=dev))
+    gather = lambda xs: comm.all_gather(torch.stack(
+        [torch.as_tensor(x).to(dev) for x in xs]))
+    return GHICPResult(
+        transform=gather([o.transform for o in outs]),
+        iterations=gather([o.iterations for o in outs]),
+        converged=gather([o.converged for o in outs]),
+        success=gather([o.success for o in outs]),
+        final_rmse=gather([o.final_rmse for o in outs]),
+        metrics=IterationMetrics(*(gather([o.metrics[f] for o in outs])
+                                   for f in range(len(IterationMetrics._fields)))),
+        matches=gather([o.matches for o in outs]))

@@ -91,3 +91,28 @@ def test_command_lines_leave_jax_out(module):
     assert out.returncode == 0, out.stderr
     assert "usage:" in out.stdout
     assert out.stdout.strip().splitlines()[-1] == "BAD"
+
+
+def test_shard_package_leaves_jax_out():
+    code = ("import sys, ghicp_tpu_torch.shard, ghicp_tpu_torch.shard.launch,"
+            " ghicp_tpu_torch.shard.tasks\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'ghicp_tpu' or m.startswith('ghicp_tpu.')]\n"
+            "print(','.join(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+def test_spawned_ranks_leave_jax_out():
+    """Each rank checks before it exits that neither JAX nor the JAX
+    package is loaded (here, where the tests load both, the check
+    raises)."""
+    from ghicp_tpu_torch.shard.launch import launch, no_jax_loaded
+    res = launch("comm_selftest", 2, "gloo",
+                 dict(values=[np.ones(2, np.float32)] * 2, device="cpu"))
+    assert [r["rank"] for r in res] == [0, 1]
+    import jax  # noqa: F401  (the test process holds the JAX package)
+    with pytest.raises(RuntimeError, match="imported"):
+        no_jax_loaded()
