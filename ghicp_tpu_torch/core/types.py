@@ -13,6 +13,11 @@ import numpy as np
 import torch
 
 
+def round_up(n: int, multiple: int) -> int:
+    """``n`` rounded up to the next multiple of ``multiple``."""
+    return -(-n // multiple) * multiple
+
+
 def bucket_size(n: int, multiple: int = 256, min_size: int = 256) -> int:
     """Static bucket capacity for ``n`` live elements (power-of-two steps)."""
     n = max(n, 1)

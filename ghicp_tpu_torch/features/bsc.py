@@ -182,6 +182,18 @@ def _neighborhoods(cloud: PointCloud, kp_xyz, kp_mask, radius: float,
     return cloud.xyz[nb.idx], nb.valid
 
 
+def bsc_frames(cloud: PointCloud, kp_xyz: torch.Tensor,
+               kp_mask: torch.Tensor, radius: float,
+               neighbor_k: int = 128) -> torch.Tensor:
+    """The keypoints' local frames [S, 3, 3] (rows = axes) over their
+    ``neighbor_k`` nearest neighbors in the sqrt(3) * ``radius`` ball: the
+    frames :func:`extract_bsc` rotates each neighborhood into (its
+    ``frames``), for pose hypotheses from one correspondence."""
+    nxyz, nvalid = _neighborhoods(cloud, kp_xyz, kp_mask, radius,
+                                  neighbor_k)
+    return local_frames(nxyz, nvalid, kp_xyz, radius)
+
+
 def extract_bsc(cloud: PointCloud, keypoints: torch.Tensor, kp_mask,
                 config: GHICPConfig, num_variants: int) -> BSCFeatures:
     """BSC features at keypoint locations over the support ``cloud``.

@@ -14,7 +14,7 @@ violators re-bid.  Two branches, with the JAX package's dispatch
   geometric epsilon ladder of ``n_phases`` rungs;
 * Jacobi — otherwise: synchronous bidding rounds, each one top-2 sweep
   :func:`ghicp_tpu_torch.ops.top2.top2_rows` (K6) plus column-wise
-  scatter-max resolution, epsilon divided by ``EPS_SCALING`` between
+  scatter-max resolution, epsilon divided by ``eps_scaling`` between
   phases.  Written over a leading pair axis ([P, R, C] benefits; a
   single-pair call is P = 1): a pair with no open row, or out of budget,
   keeps its state and its round counter while the others bid, the
@@ -46,7 +46,6 @@ from ghicp_tpu_torch.ops.top2 import top2_rows
 
 NEG = -3.0e38
 SINK = 2**30      # "unmatched" pseudo-column (infinite capacity)
-EPS_SCALING = 5.0  # Jacobi ladder: epsilon divided by this between phases
 
 
 class AuctionResult(NamedTuple):
@@ -213,15 +212,16 @@ def _run_phase(b, eps, sink, st, r0: np.ndarray, max_rounds: np.ndarray,
 
 
 def _jacobi(b, sink, eps_final, eps0, st, max_rounds: np.ndarray,
-            active: np.ndarray, row_offset: int = 0, comm: Comm = LOCAL):
+            active: np.ndarray, eps_scaling: float, row_offset: int = 0,
+            comm: Comm = LOCAL):
     """The epsilon-scaling ladder of Jacobi phases: from ``eps0`` divide by
-    ``EPS_SCALING`` down to ``eps_final``, reopening eps-CS violators only
+    ``eps_scaling`` down to ``eps_final``, reopening eps-CS violators only
     when another phase follows.  Returns (owner, acol, p, rounds [P] host,
     terminal epsilon [P])."""
     dev = b.device
     # XLA computes the division by the constant as a product with its
     # float32 reciprocal; so does this, to the same bits
-    shrink = float(np.float32(1.0 / EPS_SCALING))
+    shrink = float(np.float32(1.0 / eps_scaling))
     done = ~active
     eps_now = eps0
     rounds = np.zeros_like(max_rounds)
@@ -359,7 +359,8 @@ def _batched(x, single: bool):
     return torch.as_tensor(x)[None]
 
 
-def auction_assign(b, sink_value, eps, max_rounds, rel_eps: float = 0.0,
+def auction_assign(b, sink_value, eps, max_rounds, eps_scaling: float = 5.0,
+                   rel_eps: float = 0.0,
                    p0: Optional[torch.Tensor] = None, price_uncertainty=None,
                    use_round_kernel: bool = False, n_phases: int = 4,
                    b_max=None, acol0: Optional[torch.Tensor] = None,
@@ -375,7 +376,9 @@ def auction_assign(b, sink_value, eps, max_rounds, rel_eps: float = 0.0,
     ``active`` [P] (host bools, default all) lists the pairs to solve; the
     others keep their start state.  Under a distributed ``comm`` (one
     pair) ``b`` holds this rank's rows, the first at global row
-    ``row_offset`` (default rank * R).  Returns (acol [R], prices [C],
+    ``row_offset`` (default rank * R).  ``eps_scaling`` divides epsilon
+    between the Jacobi branch's phases (the Gauss-Seidel branch's ladder
+    has ``n_phases`` rungs).  Returns (acol [R], prices [C],
     rounds, eps_bound, punc [C]), each with the pair axis of ``b``."""
     single = b.ndim == 2
     if single:
@@ -465,7 +468,7 @@ def auction_assign(b, sink_value, eps, max_rounds, rel_eps: float = 0.0,
                else np.asarray(active, bool))
         _, acol, p, rounds, eps_bound = _jacobi(
             b, sink, eps_final, eps0, (owner_init, acol_init, p_init), mr,
-            act, row_offset, comm)
+            act, eps_scaling, row_offset, comm)
     cert = eps_keep if acol0 is not None else torch.zeros_like(eps_bound)
     punc = torch.where(p != p_init, 2.0 * eps_bound[:, None], cert[:, None])
     rounds = torch.as_tensor(rounds)

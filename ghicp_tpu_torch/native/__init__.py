@@ -89,6 +89,21 @@ def library() -> ctypes.CDLL:
         return _LIB
 
 
+def get_lib() -> Optional[ctypes.CDLL]:
+    """The loaded library, or None when this host cannot build it (no
+    g++, or a failed compile).  The readers and writers call
+    :func:`library`, which raises instead."""
+    try:
+        return library()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return None
+
+
+def available() -> bool:
+    """Whether the library builds and loads on this host."""
+    return get_lib() is not None
+
+
 # --------------------------------------------------------------- LAS ----
 def _check_records(raw: np.ndarray, n: int, record_len: int) -> np.ndarray:
     raw = np.ascontiguousarray(raw, np.uint8).reshape(-1)

@@ -183,12 +183,29 @@ def stream_features(words_s: torch.Tensor, words_t: torch.Tensor,
                           bits_s=unpack_bits8(ws), bits_t=unpack_bits8(wt))
 
 
-def make_stream_features(packed_s: torch.Tensor,
-                         packed_t: torch.Tensor) -> StreamFeatures:
-    """Factors from packed BSC bits (zero beyond the last bit):
-    ``packed_s`` [V, S, W], ``packed_t`` [V', T, W] (the target uses
-    variant 0)."""
-    ws, wt = to_words(packed_s), to_words(packed_t[0])
+def make_stream_features(packed_s: Optional[torch.Tensor] = None,
+                         packed_t: Optional[torch.Tensor] = None,
+                         n_bits: int = 441,
+                         desc_s: Optional[torch.Tensor] = None,
+                         desc_t: Optional[torch.Tensor] = None,
+                         standardize: str = "rows"):
+    """The streaming lane's factors.  BSC: from packed bits ``packed_s``
+    [V, S, W] / ``packed_t`` [V', T, W] (the target uses variant 0), the
+    first ``n_bits`` of each row (the words are masked past them).
+    FPFH/RoPS: from descriptors ``desc_s`` [S, D] / ``desc_t`` [T, D],
+    :func:`make_desc_features` with ``standardize``."""
+    if packed_s is None:
+        if desc_s is None or desc_t is None:
+            raise ValueError("make_stream_features: give packed bits or "
+                             "both descriptor sets")
+        return make_desc_features(desc_s, desc_t, standardize)
+    W = packed_s.shape[-1]
+    # each word's bits below n_bits: 32, then what is left, then none
+    keep = torch.tensor([(1 << max(0, min(32, n_bits - 32 * w))) - 1
+                         for w in range(W)], dtype=torch.int64,
+                        device=packed_s.device)
+    ws = to_words(packed_s.to(torch.int64) & keep)
+    wt = to_words(packed_t[0].to(torch.int64) & keep)
     na = popcount32(ws.to(torch.int64)).sum(dim=-1).to(torch.float32)
     nb = popcount32(wt.to(torch.int64)).sum(dim=-1).to(torch.float32)
     return stream_features(ws, wt, na, nb)

@@ -121,7 +121,8 @@ def _pca_cell_pair(table: CellTable, radius: float, n_cells: int,
 
 def _pca_query(table: CellTable, qxyz: torch.Tensor, qmask: torch.Tensor,
                radius: float, chunk: int = 1024) -> PCAFeatures:
-    """Per-query PCA over the cell table (the spill fallback)."""
+    """Per-query PCA over the cell table, ``chunk`` queries a block (the
+    spill fallback, and every point under ``cell_pair=False``)."""
     r2 = torch.tensor(radius * radius, dtype=torch.float32)
     covs, cnts = [], []
     for s in range(0, qxyz.shape[0], chunk):
@@ -140,14 +141,22 @@ def _pca_query(table: CellTable, qxyz: torch.Tensor, qmask: torch.Tensor,
     return _features(torch.cat(covs), cnt, qmask & (cnt >= 3))
 
 
-def pca_features(cloud: PointCloud, radius: float, cell_cap: int = 64,
-                 max_cells: int = 0) -> PCAFeatures:
+def pca_features(cloud: PointCloud, radius: float, k: int = 128,
+                 cell_cap: int = 64, chunk: int = 4096, max_cells: int = 0,
+                 cell_pair: bool = True) -> PCAFeatures:
     """Per-point PCA features over a fixed-radius (cap-thinned)
-    neighborhood: cell-pair sweep plus the per-query spill fallback."""
+    neighborhood.  The default path is the cell-pair sweep plus the
+    per-query spill fallback; ``cell_pair=False`` runs the per-query path
+    over every point, ``chunk`` queries a block.  Both read the same cell
+    table (``cell_cap`` residents a cell, ``max_cells`` cells; 0: the
+    capacity).  ``k`` is the JAX package's argument of the same name,
+    which neither package's paths read."""
     if max_cells <= 0:
         max_cells = cloud.capacity
     table = build_cell_table(cloud, cell=radius, max_cells=max_cells,
                              cap=cell_cap)
+    if not cell_pair:
+        return _pca_query(table, cloud.xyz, cloud.mask, radius, chunk)
     n_cells = int((table.hashes != IMAX).sum())
     feats = _pca_cell_pair(table, radius, max(n_cells, 1), cloud.capacity)
     spill = cloud.mask & ~(feats.n_neighbors > 0)
@@ -171,8 +180,10 @@ def pca_features(cloud: PointCloud, radius: float, cell_cap: int = 64,
 def pca_features_pair(cloud_a: PointCloud, cloud_b: PointCloud,
                       radius: float, cell_cap: int = 64, max_cells: int = 0):
     """PCA features of both clouds of a pair."""
-    return (pca_features(cloud_a, radius, cell_cap, max_cells),
-            pca_features(cloud_b, radius, cell_cap, max_cells))
+    return (pca_features(cloud_a, radius, cell_cap=cell_cap,
+                         max_cells=max_cells),
+            pca_features(cloud_b, radius, cell_cap=cell_cap,
+                         max_cells=max_cells))
 
 
 def neighborhood_covariance(xyz: torch.Tensor, nb: NeighborList):

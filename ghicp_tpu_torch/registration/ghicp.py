@@ -65,6 +65,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -907,11 +908,15 @@ def _on_device(dev, kp_s, mask_s, kp_t, mask_t):
 
 def _loop(kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude, config,
           init_transform, it_shift, device, iteration_callback, stream,
-          comm: Comm = LOCAL, total_rows: Optional[int] = None):
+          comm: Comm = LOCAL, total_rows: Optional[int] = None,
+          chunk: Optional[int] = None, overhead_out: Optional[dict] = None):
     """Inputs on ``device`` and the GH-ICP loop run to convergence (or
     ``max_iterations``); under a distributed ``comm`` on this rank's rows
-    of ``total_rows``.  Returns (state, kp_t, mask_s, mask_t, fd, bbx,
-    stream) on the device."""
+    of ``total_rows``.  The callback's cadence is ``chunk`` iterations
+    (default ``config.engine_chunk``); ``overhead_out`` (a dict) receives
+    ``dispatch_overhead``, the seconds of one more entry into the loop
+    with the finished state.  Returns (state, kp_t, mask_s, mask_t, fd,
+    bbx, stream) on the device."""
     dev = resolve_device(device)
     to = lambda x: torch.as_tensor(x).to(dev)
     kp_s, mask_s, kp_t, mask_t = _on_device(dev, kp_s, mask_s, kp_t, mask_t)
@@ -927,21 +932,37 @@ def _loop(kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude, config,
     body = make_body(kp_t, mask_s, mask_t, fd, bbx, config, stream, comm,
                      total_rows)
 
-    def report():
-        iteration_callback(state.it, state.kps.cpu().numpy(),
-                           state.matches.cpu().numpy())
+    chunk = chunk or config.engine_chunk
 
-    # the callback fires where the JAX package's chunked loop returns to the
-    # host: every ``engine_chunk`` iterations and once at the end
-    reported = None
-    while not state.converged and state.it < config.max_iterations:
-        state = body(state)
-        if iteration_callback is not None and (
-                state.it % config.engine_chunk == 0):
-            report()
-            reported = state.it
+    def report(st):
+        iteration_callback(st.it, st.kps.cpu().numpy(),
+                           st.matches.cpu().numpy())
+
+    def run(st):
+        """The loop from ``st``; the callback fires where the JAX
+        package's chunked loop returns to the host: every ``chunk``
+        iterations and once at the end."""
+        reported = None
+        while not st.converged and st.it < config.max_iterations:
+            st = body(st)
+            if iteration_callback is not None and st.it % chunk == 0:
+                report(st)
+                reported = st.it
+        return st, reported
+
+    state, reported = run(state)
     if iteration_callback is not None and reported != state.it:
-        report()
+        report(state)
+    if overhead_out is not None:
+        # the fixed host cost of a pass: enter the loop once more with the
+        # finished state (no iteration runs) and read its success flag to
+        # the host, as the JAX package's probe redispatches its chunk
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        done, _ = run(state)
+        bool(done.rmse_after < 1.5 * config.non_max_radius)
+        overhead_out["dispatch_overhead"] = time.perf_counter() - t0
     return state, kp_t, mask_s, mask_t, fd, bbx, stream
 
 
@@ -969,19 +990,26 @@ def ghicp_register(kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude: float,
 
 def ghicp_register_chunked(kp_s, mask_s, kp_t, mask_t, fd,
                            bbx_magnitude: float, config: GHICPConfig,
-                           init_transform=None, it_shift: float = 0.0,
-                           device=None, iteration_callback=None,
-                           stream=None) -> GHICPResult:
+                           chunk: int = 8, init_transform=None,
+                           it_shift: float = 0.0, stream=None,
+                           iteration_callback=None,
+                           overhead_out: Optional[dict] = None,
+                           device=None) -> GHICPResult:
     """Run the GH-ICP loop to convergence (or ``max_iterations``), then,
     after a KM matching, the one-to-one final matching.  Inputs are moved
     to ``device`` (the card by default).  ``stream`` (``fd`` None: packed
     BSC factors, FPFH/RoPS ``DescFeatures`` or ``NoFeatures``) selects the
     streaming lane.  ``iteration_callback(it, kps, matches)`` gets host
-    numpy copies every ``config.engine_chunk`` iterations and when the loop
-    ends, as the JAX package's chunked loop calls it."""
+    numpy copies every ``chunk`` iterations and when the loop ends, as the
+    JAX package's chunked loop calls it.  ``overhead_out`` (a dict)
+    receives ``dispatch_overhead``: the seconds of one more entry into the
+    loop with the finished state, no iteration run and its flag read to
+    the host, the fixed host cost of a pass (the JAX package's probe
+    redispatches its chunk)."""
     state, kp_t, mask_s, mask_t, fd, bbx, stream = _loop(
         kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude, config,
-        init_transform, it_shift, device, iteration_callback, stream)
+        init_transform, it_shift, device, iteration_callback, stream,
+        chunk=chunk, overhead_out=overhead_out)
     matches = state.matches
     final_rmse = float(state.rmse_after)
     if (config.final_resolve_rounds > 0

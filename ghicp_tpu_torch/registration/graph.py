@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import heapq
+import itertools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -232,19 +233,31 @@ def _poses_from_mst(n: int, results: List[PairResult]) -> List[np.ndarray]:
     """Chain pairwise transforms along a maximum-quality spanning tree
     (Prim's algorithm from station 0).  Pose i maps station i's frame into
     station 0's; a station the tree does not reach keeps the identity."""
+    return _poses_from_mst_static(
+        n, [(r.source, r.target) for r in results],
+        [r.transform for r in results], [r.quality for r in results])
+
+
+def _poses_from_mst_static(n: int, pairs: Sequence[Tuple[int, int]],
+                           tfs, quals) -> List[np.ndarray]:
+    """:func:`_poses_from_mst` from flat (pairs, transforms [4, 4] mapping
+    source to target, qualities) sequences, the gathered form the
+    distributed graph holds.  Of two edges that tie on (quality, from,
+    to), the first listed wins: an insertion counter ahead of the
+    transform keeps ``heapq`` from comparing the arrays."""
     edges: Dict[int, List[Tuple[float, int, np.ndarray]]] = {
         i: [] for i in range(n)}
-    for r in results:
-        T = r.transform                 # maps source -> target
-        edges[r.source].append((r.quality, r.target, np.linalg.inv(T)))
-        edges[r.target].append((r.quality, r.source, T))
+    for (s, t), T, q in zip(pairs, tfs, quals):
+        edges[s].append((float(q), t, np.linalg.inv(T)))
+        edges[t].append((float(q), s, T))
     poses: List[Optional[np.ndarray]] = [None] * n
     poses[0] = np.eye(4, dtype=np.float32)
     visited = {0}
-    heap = [(-q, 0, nbr, T) for (q, nbr, T) in edges[0]]
+    seq = itertools.count()
+    heap = [(-q, 0, nbr, next(seq), T) for (q, nbr, T) in edges[0]]
     heapq.heapify(heap)
     while heap and len(visited) < n:
-        _, frm, to, T_to_frm = heapq.heappop(heap)
+        _, frm, to, _, T_to_frm = heapq.heappop(heap)
         if to in visited:
             continue
         # T_to_frm maps the `to` frame into the `frm` frame
@@ -252,5 +265,5 @@ def _poses_from_mst(n: int, results: List[PairResult]) -> List[np.ndarray]:
         visited.add(to)
         for (q, nbr, T) in edges[to]:
             if nbr not in visited:
-                heapq.heappush(heap, (-q, to, nbr, T))
+                heapq.heappush(heap, (-q, to, nbr, next(seq), T))
     return [np.eye(4, dtype=np.float32) if p is None else p for p in poses]

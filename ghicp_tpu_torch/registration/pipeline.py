@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
 from typing import Dict, Optional
 
@@ -184,10 +185,35 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
                   config: GHICPConfig,
                   keypoint_capacity: Optional[int] = None,
                   initial_transform: Optional[np.ndarray] = None,
-                  iteration_callback=None, device=None) -> RegistrationOutput:
+                  profile_dir: Optional[str] = None,
+                  iteration_callback=None,
+                  overhead_out: Optional[dict] = None, *,
+                  device=None) -> RegistrationOutput:
     """Register ``source`` onto ``target`` (raw [n, 3] arrays) on
-    ``device`` (the card by default; ``"cpu"`` runs the plain versions)."""
+    ``device`` (the card by default; ``"cpu"`` runs the plain versions).
+
+    ``profile_dir`` runs the call under ``torch.profiler`` (the host, and
+    the card's kernels when it runs there) and writes a Chrome trace
+    (``*.pt.trace.json``) into that directory; the stages show as
+    ``pipeline.<stage>`` ranges.  ``iteration_callback(it, kps, matches)``
+    is called every ``config.engine_chunk`` engine iterations and at the
+    loop's end; ``overhead_out`` (a dict) receives the engine's
+    ``dispatch_overhead`` (:func:`ghicp_register_chunked`)."""
     dev = resolve_device(device)
+    if profile_dir is not None:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            out = register_pair(source_pts, target_pts, config,
+                                keypoint_capacity, initial_transform, None,
+                                iteration_callback, overhead_out, device=dev)
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            profile_dir,
+            f"register_pair.{os.getpid()}.{time.time_ns()}.pt.trace.json"))
+        return out
     timings: Dict[str, float] = {}
     with _stage("downsample", timings, dev):
         cs = PointCloud.from_points(source_pts, device=dev)
@@ -255,7 +281,8 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
             ft = extract_bsc(dt, kp_t, kp_t_mask, config, num_variants=1)
             frames_s, frames_t = fs.frames, ft.frames
             if use_stream:
-                stream = make_stream_features(fs.packed, ft.packed)
+                stream = make_stream_features(fs.packed, ft.packed,
+                                              fs.n_bits)
             else:
                 fd = min_hamming_fd(fs.packed, ft.packed, fs.n_bits)
         elif config.feature == FeatureType.NONE:
@@ -333,8 +360,10 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
             for sh in shifts:
                 cand = ghicp_register_chunked(
                     kp_s, kp_s_mask, kp_t, kp_t_mask, fd, bbx, config,
-                    init_transform=None, it_shift=sh, device=dev,
-                    iteration_callback=iteration_callback, stream=stream)
+                    chunk=config.engine_chunk, init_transform=None,
+                    it_shift=sh, stream=stream,
+                    iteration_callback=iteration_callback,
+                    overhead_out=overhead_out, device=dev)
                 score = consensus_score(cand.transform, kp_sub, mask_sub,
                                         kp_t, kp_t_mask,
                                         3.0 * config.voxel_size)
@@ -344,8 +373,10 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
         else:
             result = ghicp_register_chunked(
                 kp_s, kp_s_mask, kp_t, kp_t_mask, fd, bbx, config,
-                init_transform=T0, it_shift=it_shift, device=dev,
-                iteration_callback=iteration_callback, stream=stream)
+                chunk=config.engine_chunk, init_transform=T0,
+                it_shift=it_shift, stream=stream,
+                iteration_callback=iteration_callback,
+                overhead_out=overhead_out, device=dev)
     if identity and best_score < (0.55 * config.estimated_overlap
                                   * max(n_sub, 1)):
         # no hypothesis verified: the feature-guided RANSAC pipeline as
@@ -355,7 +386,8 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
             source_pts, target_pts,
             dataclasses.replace(config, coarse_init="ransac",
                                 identity_hypotheses=1),
-            keypoint_capacity, None, iteration_callback, device)
+            keypoint_capacity, None, None, iteration_callback, overhead_out,
+            device=dev)
     return RegistrationOutput(
         transform=result.transform.cpu().numpy(), result=result,
         n_source_down=n_vs, n_target_down=n_vt,

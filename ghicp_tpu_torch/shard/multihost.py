@@ -10,7 +10,6 @@ all-gather at the end.  One process runs :func:`register_graph` as it is.
 """
 from __future__ import annotations
 
-import heapq
 import os
 from typing import List, Optional, Sequence, Tuple
 
@@ -19,6 +18,7 @@ import torch
 
 from ghicp_tpu_torch.core.comm import LOCAL, Comm, check_nccl
 from ghicp_tpu_torch.core.config import GHICPConfig
+from ghicp_tpu_torch.registration.graph import _poses_from_mst_static
 
 
 def init_distributed(init_method: Optional[str] = None,
@@ -120,32 +120,3 @@ def register_graph_distributed(clouds: Sequence[np.ndarray],
     quals = got[:, 16].astype(np.float32)
     return tfs, quals, _poses_from_mst_static(len(clouds), list(pairs), tfs,
                                               quals)
-
-
-def _poses_from_mst_static(n: int, pairs: List[Tuple[int, int]],
-                           tfs: np.ndarray, quals: np.ndarray):
-    """Maximum-quality spanning-tree pose chaining from flat (pairs,
-    transforms, qualities) arrays: the gathered form of
-    ``registration.graph._poses_from_mst``."""
-    edges = {i: [] for i in range(n)}
-    for (s, t), T, q in zip(pairs, tfs, quals):
-        edges[s].append((float(q), t, np.linalg.inv(T)))
-        edges[t].append((float(q), s, T))
-    poses: List[Optional[np.ndarray]] = [None] * n
-    poses[0] = np.eye(4, dtype=np.float32)
-    visited = {0}
-    heap = [(-q, 0, nbr, T) for (q, nbr, T) in edges[0]]
-    heapq.heapify(heap)
-    while heap and len(visited) < n:
-        negq, frm, to, T_to_frm = heapq.heappop(heap)
-        if to in visited:
-            continue
-        poses[to] = (poses[frm] @ T_to_frm).astype(np.float32)
-        visited.add(to)
-        for (q, nbr, T) in edges[to]:
-            if nbr not in visited:
-                heapq.heappush(heap, (-q, to, nbr, T))
-    for i in range(n):
-        if poses[i] is None:
-            poses[i] = np.eye(4, dtype=np.float32)
-    return poses

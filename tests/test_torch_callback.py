@@ -1,5 +1,5 @@
 """The engine's iteration callback fires where the JAX package's chunked
-loop calls it (every ``engine_chunk`` iterations and at the loop's end),
+loop calls it (every ``chunk`` iterations and at the loop's end),
 and ``RegistrationOutput.final_correspondences`` is the JAX package's."""
 import dataclasses
 import types
@@ -61,7 +61,7 @@ def test_callback_iterations_equal_jax(case):
         iteration_callback=_record(jcalls))
     got = ghicp_register_chunked(
         src, ms, tgt, mt, fd, 40.0, config_from_dict(dataclasses.asdict(cfg)),
-        device="cpu", iteration_callback=_record(tcalls))
+        chunk=CHUNK, device="cpu", iteration_callback=_record(tcalls))
     n = int(want.iterations)
     assert got.iterations == n
     if case == "ends-on-a-boundary":

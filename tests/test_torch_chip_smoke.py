@@ -466,3 +466,70 @@ def test_engine_inputs_keeps_the_fd(integral):
                                    device="cpu")
     assert seen["fd"].dtype == (np.uint16 if integral else np.float32)
     np.testing.assert_array_equal(seen["fd"].astype(np.float32), fd)
+
+
+def test_kernels_line_keeps_its_rows():
+    """The kernels line lists phase 2's 21 comparisons, then phase 13's
+    ring lane, under the names it has always had (the script fails if the
+    rows it built differ)."""
+    assert chip_smoke.KERNEL_ROWS == (
+        "fused_benefit", "fused_benefit_mult", "fused_benefit_f32",
+        "fused_benefit_mult_f32", "auction_phase_gs", "auction_phase_gs_f32",
+        "auction_warm_fused", "auction_warm_fused_mult",
+        "auction_warm_fused_f32", "auction_warm_fused_mult_f32",
+        "nms_exact", "stream_sweep", "top2_rows", "stream_sweep_mult",
+        "stream_sweep_col", "stream_sweep_mult_col", "stream_sweep_none",
+        "stream_sweep_none_col", "auction_rounds", "auction_rounds_f32",
+        "auction_phase", "ring_sweep")
+    assert chip_smoke.OFF_PATH < set(chip_smoke.KERNEL_ROWS)
+
+
+def test_surface_phase_rehearsal(capsys):
+    """Phase 14 on the CPU at a small size (a structured scene of 6000
+    points, 12 degrees apart): the traced registration against the
+    untraced one, then the helpers, each read back from its log line (on
+    the CPU the trace holds no device events and the helpers meet
+    themselves)."""
+    import re
+
+    from ghicp_tpu_torch.core.config import GHICPConfig
+    from ghicp_tpu_torch.io.synthetic import structured_scene
+    pts = structured_scene(np.random.default_rng(2), 6000, extent=10.0)
+    th = np.deg2rad(12.0)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = [[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0],
+                 [0, 0, 1]]
+    T[:3, 3] = [0.6, -0.4, 0.1]
+    src = ((pts - T[:3, 3]) @ T[:3, :3]).astype(np.float32)
+    cfg = GHICPConfig(voxel_size=0.15, neighborhood_radius=0.5,
+                      non_max_radius=1.0, min_neighbors=8,
+                      estimated_overlap=0.9, max_iterations=20,
+                      ransac_hypotheses=4096, pca_cell_cap=32)
+    path = chip_smoke.surface_phase(torch, src, pts, T, cfg, "rehearsal",
+                                    device="cpu")
+    out = capsys.readouterr().out
+    assert not any(path.values())           # plain versions launch nothing
+    lines = {m.group(1): m.group(2) for m in re.finditer(
+        r"^phase (14[ab] [^(\n]+?) \(rehearsal\): (.*)$", out, re.M)}
+    stages = re.search(r"stage ranges (\[.*?\])",
+                       lines["14a traced register_pair"]).group(1)
+    assert stages == str(list(chip_smoke.SURFACE_STAGES))
+    assert "0 device kernel events" in lines["14a traced register_pair"]
+    verdict = lines["14a verdict pair traced"]
+    assert verdict.startswith("success True, rot_err ")
+    for label in ("untraced", "traced"):
+        oh = float(re.match(r"([0-9.]+) ms; register stage",
+                            lines[f"14a dispatch_overhead {label}"]).group(1))
+        assert oh > 0.0
+    assert re.search(r"iterations (\d+) / \1, transform max \|diff\| 0\.0$",
+                     out, re.M)
+    assert "mask equal True, xyz max |diff| 0 m" in lines[
+        "14b voxel_downsample centroid"]
+    pca_line = lines["14b pca_features cell_pair=False against True"]
+    assert "counts differ at 0 " in pca_line
+    assert "valid equal at equal counts True" in pca_line
+    ham = lines["14b Hamming on the verdict BSC"]
+    assert "paths equal True" in ham and "False" not in ham
+    assert "bit-equal to extract_bsc's frames True" in lines["14b bsc_frames"]
+    assert re.search(r"^phase 14 \(public surface, rehearsal\): [0-9.]+ s; "
+                     r"launches ", out, re.M)

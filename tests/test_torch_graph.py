@@ -19,6 +19,7 @@ from ghicp_tpu_torch.core.config import (CorrespondenceType, FeatureType,
 from ghicp_tpu_torch.io.synthetic import station_graph
 from ghicp_tpu_torch.registration import graph as tg
 from ghicp_tpu_torch.registration.pipeline import transform_error
+from ghicp_tpu_torch.shard import multihost as tmh
 
 torch.set_num_threads(1)
 # tests/test_graph.py's settings for a 9,000-point scene, with BSC + KM,
@@ -115,6 +116,41 @@ def test_poses_from_mst_equal_jax():
     ref = jg._poses_from_mst(4, make(jg.PairResult))
     for a, b in zip(mine, ref):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("func", ["graph", "multihost"])
+@pytest.mark.parametrize("order", ["a first", "b first"])
+@pytest.mark.parametrize("second", ["parallel", "opposite"])
+def test_spanning_tree_takes_the_first_of_tied_edges(func, order, second):
+    """Two edges between stations 0 and 1 of equal quality 0.5, the second
+    (1, 0) again or (0, 1): the first listed sets station 1's pose, and the
+    tie does not reach the transforms (the JAX package's heap compares
+    them there and raises)."""
+    rng = np.random.default_rng(3)
+    T = [np.eye(4, dtype=np.float32) for _ in range(2)]
+    for M in T:
+        M[:3, :3] = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+        M[:3, 3] = rng.uniform(-2, 2, 3)
+    edges = [((1, 0), T[0]),
+             ((1, 0) if second == "parallel" else (0, 1), T[1])]
+    if order == "b first":
+        edges = edges[::-1]
+    (s0, _), T0 = edges[0]
+    want = T0 if s0 == 1 else np.linalg.inv(T0).astype(np.float32)
+    pairs, tfs = [e[0] for e in edges], [e[1] for e in edges]
+    if func == "graph":
+        res = [tg.PairResult(source=s, target=t, transform=M,
+                             result=type("R", (), {
+                                 "metrics": type("M", (), {
+                                     "iou": np.float32([0.5])})(),
+                                 "iterations": 1})())
+               for (s, t), M in zip(pairs, tfs)]
+        poses = tg._poses_from_mst(2, res)
+    else:
+        poses = tmh._poses_from_mst_static(2, pairs, np.stack(tfs),
+                                           np.float32([0.5, 0.5]))
+    np.testing.assert_array_equal(poses[0], np.eye(4, dtype=np.float32))
+    np.testing.assert_array_equal(poses[1], want)
 
 
 def _rigid(theta_deg, t):

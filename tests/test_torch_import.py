@@ -28,6 +28,29 @@ def test_import_leaves_jax_out():
     assert out.stdout.strip() == ""
 
 
+def test_subpackages_build_nothing_and_leave_jax_out():
+    """The six subpackages and every name they export (their modules
+    imported at first use) pull in neither JAX nor the JAX package, build
+    no CUDA library and no native runtime, and import no Triton."""
+    code = (
+        "import sys, importlib\n"
+        "for sub in ('features', 'matching', 'preprocess', 'registration',"
+        " 'io', 'shard'):\n"
+        "    m = importlib.import_module('ghicp_tpu_torch.' + sub)\n"
+        "    for name in m.__all__:\n"
+        "        getattr(m, name)\n"
+        "from ghicp_tpu_torch import native\n"
+        "from ghicp_tpu_torch.ops import _build\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'ghicp_tpu' or m.startswith('ghicp_tpu.')"
+        " or m == 'triton' or m.startswith('triton.')]\n"
+        "print(','.join(bad), native._LIB is None, _build._LIBS == {})\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "True True"
+
+
 def test_sources_import_no_jax():
     pat = re.compile(r"^\s*(from|import)\s+(jax|ghicp_tpu)(\.|\s|$)", re.M)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
