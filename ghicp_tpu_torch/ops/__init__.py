@@ -7,7 +7,9 @@ through; the FPFH/RoPS (multiplicative-blend) variants of K1, K3 and K5
 count under their own ``*_mult`` names, the float32 variants of K1-K3
 (the ``auction_bf16=False`` lane) and of K7 / K8 under ``*_f32``, K5's
 feature-"none" variant under ``stream_sweep_none`` and its column-side
-variants under ``*_col``; each K5 launch also counts under
+variants under ``*_col``, and the Hamming lane past four variants
+(``hamw_kernel``) once more under ``stream_sweep_wide`` (``_col``); each
+K5 launch also counts under
 ``<name>@<rows>``, the rows it swept, so that full-height and compacted
 sweeps can be told apart, each K4 launch under ``nms_exact@<slots>`` and
 each K1, K2 and K3 launch under ``<name>@<rows>``, its keypoint slots.
@@ -28,6 +30,8 @@ LAUNCHES: dict[str, int] = {"fused_benefit": 0, "auction_phase_gs": 0,
                             "stream_sweep_mult_col": 0,
                             "stream_sweep_none": 0,
                             "stream_sweep_none_col": 0,
+                            "stream_sweep_wide": 0,
+                            "stream_sweep_wide_col": 0,
                             "fused_benefit_f32": 0,
                             "fused_benefit_mult_f32": 0,
                             "auction_phase_gs_f32": 0,

@@ -41,9 +41,10 @@ register-tiled kernel a lane (the Hamming lane's on the int8 tensor
 cores), each with its column side.  What every sweep of a solve reads of
 the target is made once (:class:`SweepTarget`).  Every
 variant counts its launches under its own name (``stream_sweep``,
-``stream_sweep_mult``, ``stream_sweep_none``, each with a ``_col`` twin),
-and once more under ``<name>@<rows>``, its rows, so that full-height and
-compacted sweeps can be priced apart.
+``stream_sweep_mult``, ``stream_sweep_none``, each with a ``_col`` twin;
+the Hamming lane past four variants, ``hamw_kernel``, also under
+``stream_sweep_wide``), and once more under ``<name>@<rows>``, its rows,
+so that full-height and compacted sweeps can be priced apart.
 
 :func:`stream_selected` (matched-pair gathers),
 :func:`stream_feature_candidates` (the RANSAC candidates; a ``lax.scan``
@@ -85,8 +86,13 @@ DESC_TM = 4     # its rows a thread
 DESC_TN = 4     # its columns a thread takes at once
 DESC_PASS = 32  # its columns a pass
 PLAIN_TC = 1024
-KERNEL_MAX_VARIANTS = 28   # ham_kernel at V = 1, 2, 4; hamg_kernel to 28
+KERNEL_MAX_VARIANTS = 28   # ham_kernel at V = 1, 2, 4; hamw_kernel to 28
 BIT_ROW = 448   # unpacked bits a row: 14 words of 32
+# hamw_kernel (the Hamming lane at V = 3 and 5 .. 28): the variant counts
+# its instantiations pad V to, and the shared memory a block may take
+# (232,448 bytes less its static arrays; csrc/stream.cu hamw::SMEM_MAX)
+WIDE_WIDTHS = (4, 8, 12, 16, 24, 28)
+WIDE_SMEM_MAX = 232448 - 2048
 _M32 = 0xFFFFFFFF
 
 
@@ -410,7 +416,7 @@ def _lib():
     from ghicp_tpu_torch.ops._build import cuda_library
     lib = cuda_library("stream")
     if not getattr(lib, "_typed", False):
-        lib.stream_sweep_tiled.argtypes = ([_I] + [_VP] * 10 + [_I] * 2
+        lib.stream_sweep_tiled.argtypes = ([_I] + [_VP] * 11 + [_I] * 2
                                            + [_VP] * 4 + [_F] * 3
                                            + [_I] * 6 + [_VP] * 13)
         lib.stream_sweep_tiled.restype = _I
@@ -439,6 +445,7 @@ class SweepTarget(NamedTuple):
                                     # similarity: [C, F] bf16 rows
     wt: Optional[torch.Tensor]      # Hamming: [C, 14] int32 words
     nb: Optional[torch.Tensor]      # Hamming: [C] float32 popcounts
+    tiles: Optional[torch.Tensor]   # Hamming: bit_tiles of ``rows``
     n_sm: int
     nan: torch.Tensor               # () float32 NaN
     key: tuple                      # _target_key of its inputs
@@ -470,7 +477,8 @@ def check_target(target: SweepTarget, kp_t, feats, mask_t) -> None:
 
 def sweep_target(kp_t, feats, mask_t) -> SweepTarget:
     """The target side of K5's inputs on ``kp_t``'s device, for every sweep
-    over these columns, factors and mask (the sweeps of one solve)."""
+    over these columns, factors and mask (the sweeps of one solve); on the
+    Hamming lane also the bit rows tiled as hamw_kernel copies them."""
     check_features(feats, "sweep_target")
     C = kp_t.shape[0]
     dev = kp_t.device
@@ -493,9 +501,22 @@ def sweep_target(kp_t, feats, mask_t) -> SweepTarget:
     n_sm = (torch.cuda.get_device_properties(dev).multi_processor_count
             if dev.type == "cuda" else 1)
     return SweepTarget(kt=kt, mt=mt, lane=lane, rows=rows, wt=wt, nb=nb,
+                       tiles=bit_tiles(rows) if lane == 1 else None,
                        n_sm=n_sm, nan=torch.full((), float("nan"), dtype=f32,
                                                  device=dev),
                        key=_target_key(kp_t, feats, mask_t))
+
+
+def bit_tiles(bits: torch.Tensor) -> torch.Tensor:
+    """[C, 448] int8 bit rows -> [ceil(C / 64), 64 x 448]: each 64-row tile
+    in the layout of a wgmma operand in shared memory (csrc/stream.cu
+    core_off: 8-row groups, each 28 chunks of 8 rows x 16 bytes), zero past
+    C, so that hamw_kernel copies a tile with one bulk copy."""
+    C = bits.shape[0]
+    n_ct = -(-C // HAM_TC)
+    pad = torch.nn.functional.pad(bits, (0, 0, 0, n_ct * HAM_TC - C))
+    return pad.view(n_ct, HAM_TC // 8, 8, BIT_ROW // 16, 16).permute(
+        0, 1, 3, 2, 4).reshape(n_ct, HAM_TC * BIT_ROW).contiguous()
 
 
 def desc_tile_cols(dim: int) -> int:
@@ -504,13 +525,59 @@ def desc_tile_cols(dim: int) -> int:
     return 128 if dim == 33 else 64
 
 
+def is_wide(V: int) -> bool:
+    """Whether the Hamming lane at V variants runs hamw_kernel (V = 3 and
+    5 .. 28) rather than ham_kernel (V = 1, 2, 4)."""
+    return V not in (1, 2, 4)
+
+
+def wide_shape(V: int) -> tuple:
+    """(rows a block, the variants VP that V is padded to, wgmma N = rows
+    x VP) of hamw_kernel at V: 16 rows up to V = 12 (a lane holds four),
+    else 8 (two), so that N is a wgmma N for .s8 (a multiple of 16, at
+    most 256) and the block fits shared memory (:func:`wide_smem_bytes`)."""
+    rows = 16 if V <= 12 else 8
+    vp = next(w for w in WIDE_WIDTHS if w >= V)
+    return rows, vp, rows * vp
+
+
+def wide_smem_bytes(V: int) -> int:
+    """hamw_kernel's dynamic shared memory at V (csrc/stream.cu
+    hamw::smem_bytes): B, the block's N bit rows; A, two target tiles of
+    each warpgroup; three stages of each warpgroup's column data (16 + 16
+    bytes a column); na + BIAS of the N rows."""
+    _, _, n = wide_shape(V)
+    return (n * BIT_ROW + 2 * 2 * HAM_TC * BIT_ROW + 2 * 3 * HAM_TC * 32
+            + n * 4)
+
+
+def wide_splits(S: int, C: int, n_sm: int, rows: int) -> int:
+    """Column ranges for hamw_kernel's blocks of ``rows``: one block fits
+    an SM, whose set-up (B, 28 to 100 KB spread from the packed words)
+    costs about a pair of tiles, so the split with the least time in pairs
+    of tiles, waves x (set-up + ceil(tiles a range / 2)), the fewest ranges
+    at equal time; no range is left empty."""
+    n_rt, n_ct = -(-S // rows), -(-C // HAM_TC)
+    best = None
+    for cs in range(1, n_ct + 1):
+        tpr = -(-n_ct // cs)
+        used = -(-n_ct // tpr)
+        if used != cs:
+            continue
+        cost = -(-n_rt * cs // n_sm) * (1 + -(-tpr // 2))
+        if best is None or cost < best[0]:
+            best = (cost, cs)
+    return best[1]
+
+
 def lane_tile(feats) -> tuple:
     """(rows a block, columns a tile) of the kernel of ``feats``' lane."""
     if isinstance(feats, NoFeatures):
         return NONE_RT, NONE_TC
     if isinstance(feats, DescFeatures):
         return DESC_RT, desc_tile_cols(feats.dim)
-    return RT, HAM_TC
+    V = feats.words_s.shape[0]
+    return (wide_shape(V)[0] if is_wide(V) else RT), HAM_TC
 
 
 def column_splits(S: int, C: int, n_sm: int, rows: int, cols: int,
@@ -558,8 +625,9 @@ def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
             raise ValueError(f"stream_sweep kernel: (V, W) = ({V}, {W}); "
                              f"it takes W = {BIT_ROW // 32} and 1 <= V <= "
                              f"{KERNEL_MAX_VARIANTS}")
-        ws = as_rows(feats.words_s.reshape(V * S, W), V * S, W, torch.int32,
-                     dev, "words_s")
+        if is_wide(V):
+            ws = as_rows(feats.words_s.reshape(V * S, W), V * S, W,
+                         torch.int32, dev, "words_s")
         bs = feats.bits_s.to(device=dev, dtype=torch.int8).contiguous()
         if tuple(bs.shape) != (V, S, BIT_ROW):
             raise ValueError(f"bits_s: expected {(V, S, BIT_ROW)}, got "
@@ -573,7 +641,9 @@ def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
     p = as_rows(prices, C, 0, f32, dev, "prices")
     ac = as_rows(acol, S, 0, i64, dev, "acol")
     rows, cols = lane_tile(feats)
-    cs = column_splits(S, C, target.n_sm, rows, cols, _TILED_PER_SM)
+    wide = lane == 1 and is_wide(V)
+    cs = (wide_splits(S, C, target.n_sm, rows) if wide else
+          column_splits(S, C, target.n_sm, rows, cols, _TILED_PER_SM))
     n_blocks = -(-S // rows) * cs
     vf = torch.empty((3, S), dtype=f32, device=dev)   # v1, v2, vsel
     vj = torch.empty((2, S), dtype=i64, device=dev)   # j1, j2
@@ -595,7 +665,8 @@ def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
     pfb, pjb = pf.data_ptr(), pj.data_ptr()
     rc = _lib().stream_sweep_tiled(
         lane, ad(ks), ad(target.kt), ad(bs), ad(ws),
-        ad(target.rows if lane == 1 else None), ad(target.wt), ad(na),
+        ad(target.rows if lane == 1 else None), ad(target.wt),
+        ad(target.tiles if wide else None), ad(na),
         ad(target.nb), ad(fs), ad(target.rows if lane == 2 else None), D, F,
         ad(ms), ad(target.mt), ad(p), ad(ac), float(wed), float(wfd),
         float(scale), S, C, V, cs, n_blocks, int(with_stats),
@@ -605,9 +676,11 @@ def stream_sweep_cuda(kp_s, kp_t, feats, mask_s, mask_t, prices, acol, wed,
     check(rc, "stream_sweep launch")
     name = ("stream_sweep_mult" if lane == 2 else "stream_sweep_none"
             if lane == 0 else "stream_sweep")
-    name = name + "_col" if col_side else name
-    count_launch(name)
-    count_launch(f"{name}@{S}")
+    col = "_col" if col_side else ""
+    # hamw_kernel counts under stream_sweep_wide(_col) as well
+    for n in (name, "stream_sweep_wide") if wide else (name,):
+        count_launch(n + col)
+        count_launch(f"{n}{col}@{S}")
     cmin = crow = None
     if col_side:
         cmin = (colkey >> 32).to(torch.int32).view(f32)
@@ -723,7 +796,10 @@ def _ring_step(kp_s, kp_t, ring, mask_s, mask_t, prices, acol, blk, off,
     target = None
     if rt is not None:
         target = SweepTarget(kt=rt.kt[sl], mt=rt.mt[sl], lane=1, rows=blk,
-                             wt=sub.words_t, nb=sub.nb, n_sm=rt.n_sm,
+                             wt=sub.words_t, nb=sub.nb,
+                             tiles=(bit_tiles(blk) if is_wide(
+                                 ring.words_s.shape[0]) else None),
+                             n_sm=rt.n_sm,
                              nan=rt.nan, key=_target_key(kpt, sub, mt))
     return (kp_s, kpt, sub, mask_s, mt, prices[sl], acl), target
 

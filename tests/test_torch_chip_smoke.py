@@ -58,7 +58,9 @@ def test_compare_phase_at_small_size(monkeypatch):
                                          "stream_sweep_none_col",
                                          "auction_rounds",
                                          "auction_rounds_f32",
-                                         "auction_phase"]
+                                         "auction_phase",
+                                         "stream_sweep_wide",
+                                         "stream_sweep_wide_col"]
     jacobi = ("auction_rounds", "auction_rounds_f32", "auction_phase")
     assert set(jacobi) == chip_smoke.OFF_PATH
     for r in rows:
@@ -73,6 +75,7 @@ def test_compare_phase_at_small_size(monkeypatch):
         # __fsqrt_rn, expf and logf by their SASS instructions
         assert r["bound_by"] == ("operations" if r["name"] in (
             "nms_exact", "stream_sweep", "stream_sweep_col",
+            "stream_sweep_wide", "stream_sweep_wide_col",
             "stream_sweep_none", "stream_sweep_none_col",
             "stream_sweep_mult", "stream_sweep_mult_col",
             "auction_warm_fused_mult") else "bytes")
@@ -90,7 +93,8 @@ def test_compare_phase_at_small_size(monkeypatch):
                    (c["S"], c["form"]) for c in r["cases"]]
             assert got == want
         if r["name"] in ("stream_sweep_mult", "stream_sweep_col",
-                         "stream_sweep_mult_col", "fused_benefit",
+                         "stream_sweep_mult_col", "stream_sweep_wide",
+                         "stream_sweep_wide_col", "fused_benefit",
                          "fused_benefit_mult", "fused_benefit_f32",
                          "fused_benefit_mult_f32", "auction_phase_gs",
                          "auction_phase_gs_f32"):
@@ -115,16 +119,18 @@ def test_compare_phase_at_small_size(monkeypatch):
                 (768, 0), (768, 2), (1024, 0)]
             assert all(c["kernel_ms"] > 0 and c["bound_ms"] > 0
                        for c in r["cases"])
-        if r["name"] in ("stream_sweep", "stream_sweep_col"):
-            # past four variants (hamg_kernel): V = 12 and 6 at two sizes
-            # and on a compacted block of the second; the column side at
-            # V = 12 at the first
-            wide = [(c["V"], c["rows"], c["cols"]) for c in r["cases"]
-                    if "V" in c]
+        if r["name"] in ("stream_sweep_wide", "stream_sweep_wide_col"):
+            # past four variants (hamw_kernel): V = 12 and 6 at two sizes
+            # and on a compacted block of the second, the column side at
+            # V = 12 at the first, and every other instantiation's width
+            # (V = 3, 5, 16, 20, 28) on the block, with the column side
+            more = [(v, 128, 256) for v in (3, 5, 16, 20, 28)]
+            wide = [(c["V"], c["rows"], c["cols"]) for c in r["cases"]]
             assert wide == ([(12, 384, 384), (12, 256, 256), (12, 128, 256),
                              (6, 384, 384), (6, 256, 256), (6, 128, 256)]
-                            if r["name"] == "stream_sweep"
-                            else [(12, 384, 384)])
+                            + more if r["name"] == "stream_sweep_wide"
+                            else [(12, 384, 384)] + more)
+            assert r["ms"] == r["cases"][0]["ms"]
         if r["name"] == "auction_warm_fused_mult":
             # the bf16 mult form without its table (on the card at
             # 20,480 slots), then past the shared-memory replica as K3
@@ -469,9 +475,10 @@ def test_engine_inputs_keeps_the_fd(integral):
 
 
 def test_kernels_line_keeps_its_rows():
-    """The kernels line lists phase 2's 21 comparisons, then phase 13's
-    ring lane, under the names it has always had (the script fails if the
-    rows it built differ)."""
+    """The kernels line lists phase 2's 23 comparisons (the Hamming lane
+    past four variants, ``hamw_kernel``, last, with its column side), then
+    phase 13's ring lane, under the names it has always had (the script
+    fails if the rows it built differ)."""
     assert chip_smoke.KERNEL_ROWS == (
         "fused_benefit", "fused_benefit_mult", "fused_benefit_f32",
         "fused_benefit_mult_f32", "auction_phase_gs", "auction_phase_gs_f32",
@@ -480,7 +487,8 @@ def test_kernels_line_keeps_its_rows():
         "nms_exact", "stream_sweep", "top2_rows", "stream_sweep_mult",
         "stream_sweep_col", "stream_sweep_mult_col", "stream_sweep_none",
         "stream_sweep_none_col", "auction_rounds", "auction_rounds_f32",
-        "auction_phase", "ring_sweep")
+        "auction_phase", "stream_sweep_wide", "stream_sweep_wide_col",
+        "ring_sweep")
     assert chip_smoke.OFF_PATH < set(chip_smoke.KERNEL_ROWS)
 
 
