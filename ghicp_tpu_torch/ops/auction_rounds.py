@@ -454,12 +454,18 @@ def _jacobi_lib():
     from ghicp_tpu_torch.ops._build import cuda_library
     lib = cuda_library("jacobi")
     if not getattr(lib, "_typed", False):
-        lib.jacobi_rounds.argtypes = ([_VP, _I] + [_VP] * 4 + [_F, _F]
-                                      + [_I] * 4 + [_VP] * 4)
+        lib.jacobi_rounds.argtypes = ([_VP, _I] + [_VP] * 7 + [_F, _F]
+                                      + [_I] * 4 + [_VP])
         lib.jacobi_rounds.restype = _I
+        lib.jacobi_scratch_bytes.argtypes = [_I, _I]
+        lib.jacobi_scratch_bytes.restype = ctypes.c_size_t
         lib._typed = True
     return lib
 
+
+@functools.lru_cache(maxsize=None)
+def _jacobi_scratch_words(S: int, C: int) -> int:
+    return -(-int(_jacobi_lib().jacobi_scratch_bytes(S, C)) // 4)
 
 
 def _check_shapes(S, C, ts, what):
@@ -779,26 +785,29 @@ def auction_warm_fused(kp_s, kp_t, fd, mask_s, mask_t, wed, wfd, scale, p0,
 
 def _jacobi_cuda(b, p0, owner0, sunk0, eps, sink, n_rounds: int,
                  early: bool, what: str):
-    from ghicp_tpu_torch.ops._build import check, ptr
+    """One launch of ``csrc/jacobi.cu`` (out of place: new p, owner and sunk
+    tensors; rounds is element 0 of the call's scratch)."""
+    from ghicp_tpu_torch.ops._build import check
     S, C = b.shape
     f32_mat = b.dtype == torch.float32
     dev = b.device
     b = b.contiguous()
-    p = as_rows(p0, C, 0, torch.float32, dev, "p0").clone()
-    owner = as_rows(owner0, C, 0, torch.int32, dev, "owner0").clone()
-    sunk = as_rows(sunk0, S, 0, torch.int32, dev, "sunk0").clone()
-    rounds = torch.zeros((1,), dtype=torch.int32, device=dev)
-    stamp = torch.zeros((S,), dtype=torch.int32, device=dev)
-    key = torch.zeros((C,), dtype=torch.int64, device=dev)
-    cnt = torch.zeros((4,), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    p0 = as_rows(p0, C, 0, torch.float32, dev, "p0")
+    owner0 = as_rows(owner0, C, 0, torch.int32, dev, "owner0")
+    sunk0 = as_rows(sunk0, S, 0, torch.int32, dev, "sunk0")
+    p = torch.empty((C,), dtype=torch.float32, device=dev)
+    owner = torch.empty((C,), dtype=torch.int32, device=dev)
+    sunk = torch.empty((S,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((_jacobi_scratch_words(S, C),), dtype=torch.int32,
+                          device=dev)
     rc = _jacobi_lib().jacobi_rounds(
-        ptr(b), int(f32_mat), ptr(p), ptr(owner), ptr(sunk), ptr(rounds),
-        _f32(eps), _f32(sink), int(n_rounds), int(bool(early)), S, C,
-        ptr(stamp), ptr(key), ptr(cnt), _VP(stream))
+        b.data_ptr(), int(f32_mat), p0.data_ptr(), owner0.data_ptr(),
+        sunk0.data_ptr(), p.data_ptr(), owner.data_ptr(), sunk.data_ptr(),
+        scratch.data_ptr(), _f32(eps), _f32(sink), int(n_rounds),
+        int(bool(early)), S, C, torch.cuda.current_stream(dev).cuda_stream)
     check(rc, f"{what} launch")
     count_launch(what + ("_f32" if f32_mat else ""))
-    return p, owner, sunk, rounds[0]
+    return p, owner, sunk, scratch[0]
 
 
 def auction_rounds_cuda(b, p0, owner0, sunk0, eps, sink, n_rounds: int):

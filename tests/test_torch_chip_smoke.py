@@ -39,7 +39,7 @@ def test_compare_phase_at_small_size(monkeypatch):
         stream_cols=384, compact_rows=128,
         top2_shapes=((2, 128, 256, "bfloat16"), (1, 64, 96, "float32")),
         big=768, no_table=512, huge=1024, wide_sizes=(384, 256),
-        wide_variants=(12, 6))
+        wide_variants=(12, 6), jacobi_many=(128, 256))
     assert [r["name"] for r in rows] == ["fused_benefit",
                                          "fused_benefit_mult",
                                          "fused_benefit_f32",
@@ -59,16 +59,28 @@ def test_compare_phase_at_small_size(monkeypatch):
                                          "auction_rounds",
                                          "auction_rounds_f32",
                                          "auction_phase",
+                                         "auction_phase_f32",
                                          "stream_sweep_wide",
                                          "stream_sweep_wide_col"]
-    jacobi = ("auction_rounds", "auction_rounds_f32", "auction_phase")
+    jacobi = ("auction_rounds", "auction_rounds_f32", "auction_phase",
+              "auction_phase_f32")
     assert set(jacobi) == chip_smoke.OFF_PATH
     for r in rows:
         assert r["max_abs_err"] == 0.0
         assert r["bound_ms"] > 0
         if r["name"] in jacobi:
-            # the open rows of each round decide: bytes or operations
+            # the open rows of each round decide: bytes or operations; K1's
+            # benefits, the many-round matrix and a warm state, each timed
+            # as a call and as the kernel alone, with its rounds
             assert r["bound_by"] in ("bytes", "operations")
+            assert [c["input"] for c in r["cases"]] == ["(a)", "(b)",
+                                                        "(warm)"]
+            assert all(c["ms"] > 0 and c["kernel_ms"] > 0
+                       and c["bound_ms"] > 0 and c["rounds"] >= 1
+                       for c in r["cases"])
+            assert r["plain_ms"] > 0 and r["kernel_ms"] > 0
+            assert r["cases"][1]["held_rounds"] == (
+                chip_smoke.JACOBI_MANY_HELD)
             continue
         # K3-mult at this size: the 132 blocks' FD factor tables outweigh
         # the FD's bytes, so operations bound it; K5-mult's pairs count
@@ -487,8 +499,8 @@ def test_kernels_line_keeps_its_rows():
         "nms_exact", "stream_sweep", "top2_rows", "stream_sweep_mult",
         "stream_sweep_col", "stream_sweep_mult_col", "stream_sweep_none",
         "stream_sweep_none_col", "auction_rounds", "auction_rounds_f32",
-        "auction_phase", "stream_sweep_wide", "stream_sweep_wide_col",
-        "ring_sweep")
+        "auction_phase", "auction_phase_f32", "stream_sweep_wide",
+        "stream_sweep_wide_col", "ring_sweep")
     assert chip_smoke.OFF_PATH < set(chip_smoke.KERNEL_ROWS)
 
 

@@ -200,3 +200,109 @@ def test_contract_checks_and_no_launch_on_cpu():
     reset_launches()
     auction_phase(torch.zeros(256, 256), *state, 0.05, -2.0, 3)
     assert all(v == 0 for v in LAUNCHES.values())
+
+
+def _warm(S, C, seed):
+    """A warm state at S x C: rows 20.. own columns 10..99, row 3 owns two
+    columns (5 and 6), row 200 owns column 7 and is sunk, row 201 is sunk,
+    column 8 points past the rows; prices from ``seed``."""
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(0, 1, C).astype(np.float32)
+    owner = np.full(C, -1, np.int32)
+    owner[10:100] = np.arange(20, 110, dtype=np.int32)
+    owner[5] = owner[6] = 3
+    owner[7] = 200
+    owner[8] = S + 5
+    sunk = np.zeros(S, np.int32)
+    sunk[200] = sunk[201] = 1
+    return p, owner, sunk
+
+
+def _open_rows(owner, sunk):
+    """The exact open-row count: rows neither owning a column nor sunk."""
+    S = len(sunk)
+    owned = np.zeros(S, bool)
+    o = owner[(owner >= 0) & (owner < S)]
+    owned[o] = True
+    return int((~owned & (sunk == 0)).sum())
+
+
+@pytest.mark.parametrize("n_rounds", [1, 6, 60])
+def test_warm_row_owning_two_columns_rounds_match_ref(n_rounds):
+    """K7 from a warm state where one row owns two columns (and a sunk row
+    owns one, and a column points past the rows): the exact open-row test
+    decides which rows bid, so K7 equals the reference at every budget."""
+    S = C = 256
+    b = _benefits(12, S, C, 0.1)
+    state = _warm(S, C, 13)
+    _assert_equal(_port(auction_rounds, b, state, 0.05, -2.0, n_rounds),
+                  _ref(b, state, 0.05, -2.0, n_rounds))
+
+
+def test_warm_row_owning_two_columns_phase_matches_interpret():
+    """K8 from the same warm state against the JAX Pallas kernel in
+    interpret mode, rounds included, and K7 at K8's rounds lands on the
+    same state.  Then the count decides, not the open rows: with most
+    columns pointing past the rows and six rows sunk, S - #owned -
+    sum(sunk) is 0 while 159 rows are open, so K8 runs no round (as the
+    JAX kernel) while K7 bids."""
+    S = C = 256
+    b = _benefits(12, S, C, 0.1)
+    state = _warm(S, C, 13)
+    js = [jnp.asarray(x) for x in state]
+    want = auction_phase_pallas(jnp.asarray(b), *js, 0.05, -2.0, 500,
+                                ts=128, interpret=True)
+    got = _port(auction_phase, b, state, 0.05, -2.0, 500)
+    _assert_equal(got, [np.asarray(x) for x in want])
+    assert 0 < int(got[3]) < 500
+    _assert_equal(_port(auction_rounds, b, state, 0.05, -2.0, int(got[3])),
+                  got[:3])
+    p, owner, sunk = (x.copy() for x in state)
+    owner[100:] = S + 5
+    sunk[202:206] = 1
+    assert S - int((owner >= 0).sum()) - int(sunk.sum()) == 0
+    assert _open_rows(owner, sunk) == 159
+    busy = (p, owner, sunk)
+    js = [jnp.asarray(x) for x in busy]
+    want = auction_phase_pallas(jnp.asarray(b), *js, 0.05, -2.0, 500,
+                                ts=128, interpret=True)
+    got = _port(auction_phase, b, busy, 0.05, -2.0, 500)
+    _assert_equal(got, [np.asarray(x) for x in want])
+    assert int(got[3]) == 0
+    _assert_equal(got[:3], busy)
+    k7 = _port(auction_rounds, b, busy, 0.05, -2.0, 3)
+    _assert_equal(k7, _ref(b, busy, 0.05, -2.0, 3))
+    assert not np.array_equal(k7[1], owner)
+
+
+@pytest.mark.parametrize("fn", ["rounds", "phase"])
+def test_rounds_past_no_open_row_match_ref(fn):
+    """K7 run far past the round where no row is open (and K8 with a budget
+    past its exit) leaves the state of that round: exact against the
+    reference at the full budget."""
+    S, C = 256, 384
+    b = _benefits(14, S, C, 0.2)
+    state = _cold(S, C)
+    _, o, s, r = _port(auction_phase, b, state, 0.1, -1.5, 2000)
+    assert _open_rows(o, s) == 0 and int(r) < 100
+    n = 5 * int(r) + 17
+    f = auction_rounds if fn == "rounds" else auction_phase
+    got = _port(f, b, state, 0.1, -1.5, n)
+    _assert_equal(got[:3], _ref(b, state, 0.1, -1.5, n))
+    _assert_equal(got[:3], _ref(b, state, 0.1, -1.5, int(r)))
+
+
+@pytest.mark.parametrize("n_rounds", [1, 25])
+def test_tie_heavy_column_goes_to_highest_row(n_rounds):
+    """Groups of eight identical rows: in round 1 each group bids the same
+    value on the same column and the group's highest row takes it; exact
+    against the reference, then over later rounds."""
+    S, C = 256, 256
+    b = _benefits(15, S, C, 0.0)
+    b[:] = b[::8].repeat(8, axis=0)
+    state = _cold(S, C)
+    got = _port(auction_rounds, b, state, 0.05, -5.0, n_rounds)
+    _assert_equal(got, _ref(b, state, 0.05, -5.0, n_rounds))
+    if n_rounds == 1:
+        won = got[1][got[1] >= 0]
+        assert len(won) >= 16 and np.all(won % 8 == 7)
