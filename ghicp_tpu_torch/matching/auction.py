@@ -39,6 +39,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ghicp_tpu_torch.core import trace
 from ghicp_tpu_torch.core.comm import LOCAL, Comm
 from ghicp_tpu_torch.matching.matchers import MatchResult
 from ghicp_tpu_torch.ops.auction_rounds import auction_phase_gs, gs_tile_rows
@@ -127,7 +128,7 @@ def _reopen_violators(b, sink, st, eps_prev, eps_now, comm: Comm = LOCAL):
 
     st1 = sweep(owner, acol, p)
     reopened = comm.psum(((st1[1] == -1) & (acol != -1)).sum(dim=-1)) > 0
-    if bool(reopened.any()):
+    if trace.read(bool, reopened.any()):
         st4 = st1
         for _ in range(3):
             st4 = sweep(*st4)
@@ -199,7 +200,8 @@ def _run_phase(b, eps, sink, st, r0: np.ndarray, max_rounds: np.ndarray,
     esc_period = np.maximum(remaining // 16, 1)
     r = r0.copy()
     while True:
-        n_open = comm.psum((st[1] < 0).sum(dim=-1)).cpu().numpy()
+        with trace.wait():
+            n_open = comm.psum((st[1] < 0).sum(dim=-1)).cpu().numpy()
         go = run & (n_open > 0) & (r < max_rounds)
         if not go.any():
             break
@@ -231,7 +233,8 @@ def _jacobi(b, sink, eps_final, eps0, st, max_rounds: np.ndarray,
         st_new, r_new, term_new = _run_phase(b, eps_now, sink, st, rounds,
                                              max_rounds, run, row_offset,
                                              comm)
-        at_final = (eps_now <= eps_final * 1.0001).cpu().numpy()
+        with trace.wait():
+            at_final = (eps_now <= eps_final * 1.0001).cpu().numpy()
         fin = at_final | (r_new >= max_rounds)
         eps_next = torch.maximum(eps_now * shrink, eps_final)
         again = run & ~fin
@@ -281,7 +284,7 @@ def _gs_phases(b, sink_t, eps_final, eps0, owner, acol, p, max_rounds: int,
         r = torch.as_tensor(r, device=b.device)
         spent = r if spent is None else spent + r
         if not last:
-            remaining -= int(r)
+            remaining -= trace.read(int, r)
             eps_next = torch.maximum(eps0 * ratio ** (k + 1), eps_final)
             acol = derive_acol(owner, sunk, R)
             st = _reopen_violators(
@@ -325,7 +328,7 @@ def _gs_sharded(b, sink_t, eps_final, owner_g, acol, p, max_rounds: int,
 
     r = 0
     while True:
-        n_open = int(comm.psum((acol == -1).sum()))
+        n_open = trace.read(int, comm.psum((acol == -1).sum()))
         if n_open == 0 or r >= int(max_rounds):
             break
         mine = (owner_g >= row_offset) & (owner_g < row_offset + R)
@@ -482,7 +485,7 @@ def _complete(acol, b, p, penalty, gate=None):
     takes its best column at the current prices (duplicates allowed), or
     the sink.  Skipped (one host read) when no row is open."""
     leftover = acol == -1
-    if not bool(leftover.any()):
+    if not trace.read(bool, leftover.any()):
         return acol
     v = b.float() - p[..., None, :]
     if gate is not None:

@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ghicp_tpu_torch.core import trace
 from ghicp_tpu_torch.core import transform as tf
 from ghicp_tpu_torch.registration.estimator import kabsch_6dof
 
@@ -190,6 +191,6 @@ def ransac_coarse_align(kp_s, mask_s, kp_t, mask_t, fd, tau: float,
         w = ((d2 < tau * tau) & row_ok).to(torch.float32)
         T_best = kabsch_6dof(kp_s, sel, w)
     d2f, _ = _nearest(tf.apply(T_best, kp_s), dst_all, cand_ok)
-    final_inl = int(((d2f < tau * tau) & row_ok).sum())
+    final_inl = trace.read(int, ((d2f < tau * tau) & row_ok).sum())
     return RansacResult(transform=T_best, inliers=final_inl,
-                        n_candidates=int(cand_ok[:, 0].sum()))
+                        n_candidates=trace.read(int, cand_ok[:, 0].sum()))

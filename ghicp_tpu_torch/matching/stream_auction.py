@@ -36,6 +36,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ghicp_tpu_torch.core import trace
 from ghicp_tpu_torch.core.comm import LOCAL, Comm
 from ghicp_tpu_torch.matching.auction import SINK, _local_rows
 from ghicp_tpu_torch.matching.matchers import MatchResult
@@ -125,7 +126,7 @@ def _resolve_round(v1, j1, v2, eps_r, sink, owner, acol, p,
 def sweep_moments(sw):
     """(mean, std) of CD over a sweep's valid pairs.  Raises if the sweep
     ran without its statistics (``with_stats=False``: NaN)."""
-    if bool(torch.isnan(sw.cnt)):
+    if trace.read(bool, torch.isnan(sw.cnt)):
         raise ValueError("sweep_moments: the sweep ran with_stats=False")
     cnt = torch.clamp(sw.cnt, min=1.0)
     mean = sw.cd_sum / cnt
@@ -192,11 +193,12 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
     def sub_sweep(idx, sub_mask, p, ac_sub):
         nonlocal n_compact
         n_compact += 1
-        if sweep_sub_fn is not None:
-            return sweep_sub_fn(idx, sub_mask, p, ac_sub)
-        return stream_sweep(kp_s[idx], kp_t, subset_rows(feats, idx),
-                            sub_mask, mask_t, p, ac_sub, wed, wfd, scale,
-                            with_stats=False, target=target)
+        with trace.span("sweep"):
+            if sweep_sub_fn is not None:
+                return sweep_sub_fn(idx, sub_mask, p, ac_sub)
+            return stream_sweep(kp_s[idx], kp_t, subset_rows(feats, idx),
+                                sub_mask, mask_t, p, ac_sub, wed, wfd, scale,
+                                with_stats=False, target=target)
 
     # --- sweep 0: statistics + warm-start hints at mid-deflated prices ---
     real0 = (acol0 >= 0) & (acol0 < C)
@@ -228,8 +230,9 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
         sw0_v2 = torch.full((S,), NEG, dtype=torch.float32, device=dev)
         swept0 = False
     else:
-        sw0 = sweep_fn(p_mid, acol0, with_stats=True)
-        if bool(torch.isnan(sw0.cnt)):
+        with trace.span("sweep"):
+            sw0 = sweep_fn(p_mid, acol0, with_stats=True)
+        if trace.read(bool, torch.isnan(sw0.cnt)):
             raise ValueError("stream_solve: sweep 0 ran without statistics")
         cnt, s1, s2 = comm.psum(torch.stack([sw0.cnt, sw0.cd_sum,
                                              sw0.cd_sumsq])).unbind()
@@ -280,32 +283,37 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
         ``n_open``: this rank's open rows (the ranks' largest count where
         the sweep carries collectives)."""
         if uniform_compact:
-            n_open = int(comm.pmax(torch.tensor(n_open, device=dev)))
+            n_open = trace.read(int, comm.pmax(torch.tensor(n_open,
+                                                            device=dev)))
         if not can_compact or n_open > cap:
-            sw = sweep_fn(p, acol)
+            with trace.span("sweep"):
+                sw = sweep_fn(p, acol)
             return sw.v1, sw.j1, sw.v2, sw.v1, mask_s
-        rank = torch.cumsum(rows_open.to(torch.int64), 0) - 1
-        pos = torch.where(rows_open & (rank < cap), rank, cap)
-        idx = torch.zeros((cap + 1,), dtype=torch.int64, device=dev)
-        idx[pos] = rows
-        idx = idx[:cap]
-        filled = torch.zeros((cap + 1,), dtype=torch.bool, device=dev)
-        filled[pos] = rows_open
-        sub_mask = filled[:cap] & mask_s[idx]
-        sw = sub_sweep(idx, sub_mask, p, acol[idx])
-        idx_sc = torch.where(sub_mask, idx, S)
-        v1 = torch.cat([neg_s, neg_s[:1]])
-        v1[idx_sc] = sw.v1
-        j1 = torch.zeros((S + 1,), dtype=torch.int64, device=dev)
-        j1[idx_sc] = sw.j1
-        v2 = torch.cat([neg_s, neg_s[:1]])
-        v2[idx_sc] = sw.v2
-        obs = torch.zeros((S + 1,), dtype=torch.bool, device=dev)
-        obs[idx_sc] = sub_mask
+        with trace.span("compact"):
+            rank = torch.cumsum(rows_open.to(torch.int64), 0) - 1
+            pos = torch.where(rows_open & (rank < cap), rank, cap)
+            idx = torch.zeros((cap + 1,), dtype=torch.int64, device=dev)
+            idx[pos] = rows
+            idx = idx[:cap]
+            filled = torch.zeros((cap + 1,), dtype=torch.bool, device=dev)
+            filled[pos] = rows_open
+            sub_mask = filled[:cap] & mask_s[idx]
+            ac_sub = acol[idx]
+        sw = sub_sweep(idx, sub_mask, p, ac_sub)
+        with trace.span("compact"):
+            idx_sc = torch.where(sub_mask, idx, S)
+            v1 = torch.cat([neg_s, neg_s[:1]])
+            v1[idx_sc] = sw.v1
+            j1 = torch.zeros((S + 1,), dtype=torch.int64, device=dev)
+            j1[idx_sc] = sw.j1
+            v2 = torch.cat([neg_s, neg_s[:1]])
+            v2[idx_sc] = sw.v2
+            obs = torch.zeros((S + 1,), dtype=torch.bool, device=dev)
+            obs[idx_sc] = sub_mask
         return v1[:S], j1[:S], v2[:S], v1[:S], obs[:S]
 
     # cold solves reuse sweep 0's top-2 for the first bidding round
-    cold0 = not bool((owner0 >= 0).any())
+    cold0 = not trace.read(bool, (owner0 >= 0).any())
     v1_obs = neg_s
     j1_obs = torch.zeros((S,), dtype=torch.int64, device=dev)
     obs = torch.zeros((S,), dtype=torch.bool, device=dev)
@@ -313,10 +321,10 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
     while True:
         rows_open = acol == -1
         n_local = rows_open.sum()
-        n_open = int(comm.psum(n_local))
+        n_open = trace.read(int, comm.psum(n_local))
         # the extension needs every rank's open rows to fit its block
-        n_most = (int(comm.pmax(n_local)) if extend and comm.distributed
-                  else n_open)
+        n_most = (trace.read(int, comm.pmax(n_local))
+                  if extend and comm.distributed else n_open)
         if r == 0:
             open_rows = n_open
         in_budget = r < budget or (extend and n_most <= cap
@@ -327,27 +335,29 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
             v1, j1, v2, v1_new, touched = (v1_base, sw0_j1, sw0_v2, v1_base,
                                            mask_s)
         else:
-            v1, j1, v2, v1_new, touched = open_top2(rows_open,
-                                                    int(n_local), p, acol)
+            v1, j1, v2, v1_new, touched = open_top2(
+                rows_open, trace.read(int, n_local), p, acol)
         v1_obs = torch.where(touched, v1_new, v1_obs)
         j1_obs = torch.where(touched, j1, j1_obs)
         obs = obs | touched
-        owner, acol, p = _resolve_round(v1, j1, v2, esc_eps(r + 1), sink,
-                                        owner, acol, p, row_offset, comm)
+        with trace.span("resolve"):
+            owner, acol, p = _resolve_round(v1, j1, v2, esc_eps(r + 1), sink,
+                                            owner, acol, p, row_offset, comm)
         r += 1
 
     # --- greedy completion at final prices (budget exhaustion) ---
     leftover = acol == -1
     n_left_local = leftover.sum()
-    n_left, n_unseen = (int(x) for x in comm.psum(torch.stack(
-        [n_left_local, (leftover & ~obs).sum()])).unbind())
+    with trace.wait():
+        n_left, n_unseen = (int(x) for x in comm.psum(torch.stack(
+            [n_left_local, (leftover & ~obs).sum()])).unbind())
     if n_left > 0:
         stale = can_compact and n_left > cap and n_unseen == 0
         if stale:
             v1, j1 = v1_obs, j1_obs
         else:
             v1, j1, _, v1_new, touched = open_top2(
-                leftover, int(n_left_local), p, acol)
+                leftover, trace.read(int, n_left_local), p, acol)
             v1_obs = torch.where(touched, v1_new, v1_obs)
             obs = obs | touched
         acol = torch.where(leftover, torch.where(v1 > sink, j1, SINK), acol)

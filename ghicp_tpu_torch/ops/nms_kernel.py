@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from ghicp_tpu_torch.core import trace
 from ghicp_tpu_torch.ops import count_launch, require_device
 
 TS = 256                 # candidates a tile (the kernel's block size)
@@ -107,7 +108,7 @@ def nms_prep(xyz, curv, cand, radius, ts: int = TS) -> NMSPrep:
         + gap[..., 2] * gap[..., 2]
     near = d2t <= r2
     nbr_cnt = near.sum(dim=1).to(torch.int32)
-    maxn = max(int(nbr_cnt.max()), 1)
+    maxn = max(trace.read(int, nbr_cnt.max()), 1)
     nbr_idx = torch.sort((~near).to(torch.int8), dim=1, stable=True).indices
     # items k-major (code k * T + t), so that blocks taking consecutive
     # items work on different row tiles; the listed ones first
@@ -163,7 +164,7 @@ def nms_exact_plain(xyz, curv, cand, radius, max_rounds: int = 128,
     alive, sel, rounds = cand.clone(), torch.zeros_like(cand), 0
     neg = torch.full((N,), float("-inf"), dtype=torch.float32, device=dev)
     big = torch.full((N,), _BIG, dtype=torch.int64, device=dev)
-    while rounds < max_rounds and bool(alive.any()):
+    while rounds < max_rounds and trace.read(bool, alive.any()):
         aj = alive[pj]
         cj = torch.where(aj, curv[pj], float("-inf"))
         maxc = neg.scatter_reduce(0, pi, cj, "amax")
@@ -237,5 +238,5 @@ def nms_exact(xyz, curv, cand, radius, max_rounds: int = 128):
     if require_device(xyz, "nms_exact") == "cuda":
         prep = nms_prep(xyz, curv, cand, radius)
         sel, rounds = nms_exact_cuda(prep, max_rounds)
-        return sel, int(rounds)
+        return sel, trace.read(int, rounds)
     return nms_exact_plain(xyz, curv, cand, radius, max_rounds)

@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from ghicp_tpu_torch.core import trace
 from ghicp_tpu_torch.core.config import GHICPConfig
 from ghicp_tpu_torch.core.types import (PointCloud, bucket_size,
                                         stable_live_first)
@@ -72,7 +73,7 @@ def nms_bruteforce(xyz, curv, cand, radius: float, max_rounds: int = 128):
     within = (d2 <= r2) & (idx[:, None] != idx[None, :])
     del d2
     alive, sel, rounds = cand.clone(), torch.zeros_like(cand), 0
-    while rounds < max_rounds and bool(alive.any()):
+    while rounds < max_rounds and trace.read(bool, alive.any()):
         m = within & alive[None, :]
         cj = torch.where(m, curv[None, :], _NEG)
         maxc = cj.amax(dim=1)
@@ -106,7 +107,7 @@ def non_max_suppression(cloud: PointCloud, curvature, candidates,
     nb_idxf_all = torch.where(nb.valid, idxf[nb.idx], torch.inf)
     alive, selected, rounds = candidates.clone(), torch.zeros_like(
         candidates), 0
-    while rounds < max_rounds and bool(alive.any()):
+    while rounds < max_rounds and trace.read(bool, alive.any()):
         nb_alive = alive[nb.idx] & nb.valid
         nb_curv = torch.where(nb_alive, nb_curv_all, -torch.inf)
         nb_idxf = torch.where(nb_alive, nb_idxf_all, torch.inf)
@@ -208,7 +209,7 @@ def detect_keypoints(cloud: PointCloud, config: GHICPConfig,
     if config.min_curvature > 0.0:
         candidates = candidates & (feats.curvature >= config.min_curvature)
     n = cloud.capacity
-    count = int(candidates.sum())
+    count = trace.read(int, candidates.sum())
     if count == 0:
         return KeypointResult(mask=torch.zeros_like(candidates),
                               candidates=candidates, rounds=0)
@@ -227,7 +228,7 @@ def detect_keypoints(cloud: PointCloud, config: GHICPConfig,
 
 def compact_candidates(cloud: PointCloud, feats: PCAFeatures, candidates):
     """Compacted pruning survivors and their curvature (for refinement)."""
-    count = int(candidates.sum())
+    count = trace.read(int, candidates.sum())
     cap = bucket_size(max(count, 1), min_size=256)
     sel = stable_live_first(candidates)[:cap]
     cmask = candidates[sel]
@@ -248,7 +249,7 @@ def adaptive_detect(cloud: PointCloud, config: GHICPConfig) -> KeypointResult:
                          max_cells=config.pca_max_cells)
     ratio = config.unstable_ratio_threshold
     result = detect_keypoints(cloud, config, feats)
-    count = int(result.mask.sum())
+    count = trace.read(int, result.mask.sum())
     if count <= config.keypoints_max:
         return result
     finish = False
@@ -267,5 +268,5 @@ def adaptive_detect(cloud: PointCloud, config: GHICPConfig) -> KeypointResult:
         result = KeypointResult(mask=selected, candidates=candidates,
                                 rounds=rounds, bucket=cloud.capacity,
                                 path=nms_path(cloud.capacity))
-        count = int(selected.sum())
+        count = trace.read(int, selected.sum())
     return result

@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from ghicp_tpu_torch.core import trace
 from ghicp_tpu_torch.core.types import PointCloud, bucket_size
 from ghicp_tpu_torch.ops.eigh3 import eigh3
 from ghicp_tpu_torch.preprocess.hashing import IMAX
@@ -157,10 +158,10 @@ def pca_features(cloud: PointCloud, radius: float, k: int = 128,
                              cap=cell_cap)
     if not cell_pair:
         return _pca_query(table, cloud.xyz, cloud.mask, radius, chunk)
-    n_cells = int((table.hashes != IMAX).sum())
+    n_cells = trace.read(int, (table.hashes != IMAX).sum())
     feats = _pca_cell_pair(table, radius, max(n_cells, 1), cloud.capacity)
     spill = cloud.mask & ~(feats.n_neighbors > 0)
-    n_spill = int(spill.sum())
+    n_spill = trace.read(int, spill.sum())
     if n_spill == 0:
         return feats
     cap_s = bucket_size(n_spill, min_size=256)

@@ -71,6 +71,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ghicp_tpu_torch.core import trace
 from ghicp_tpu_torch.core import transform as tf
 from ghicp_tpu_torch.core.comm import LOCAL, Comm
 from ghicp_tpu_torch.core.config import (CorrespondenceType, FeatureType,
@@ -573,28 +574,35 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
     def body(st: _State) -> _State:
         it_eff, wed, wfd, budget, kps_c, owner0, real0 = prepare(st)
         if use_stream and not km:
-            match, fsel, cd_sel, penalty, ed_max = nn_stream_step(
-                st, it_eff, wed, wfd, kps_c)
-            return _tail(st, match, _f(0.0, dev), 0, st.prices, st.acol,
-                         cd_sel, penalty, ed_max, torch.zeros_like(zero_p),
-                         fsel)
+            with trace.span("solve"):
+                match, fsel, cd_sel, penalty, ed_max = nn_stream_step(
+                    st, it_eff, wed, wfd, kps_c)
+            with trace.span("estimate"):
+                return _tail(st, match, _f(0.0, dev), 0, st.prices, st.acol,
+                             cd_sel, penalty, ed_max,
+                             torch.zeros_like(zero_p), fsel)
         if use_stream:
-            sres = stream_step(st, it_eff, wed, wfd, budget, kps_c)
-            return _tail(st, sres.match, sres.energy, sres.rounds,
-                         sres.prices, sres.acol, sres.cd_sel, sres.penalty,
-                         sres.ed_max, sres.punc, sres.fd_sel, sres)
-        if use_warm_kernel and it_eff > 1.0 and st.it > 1:
-            outs = warm_solve(st, it_eff, wed, wfd, budget, kps_c, owner0,
-                              real0)
-        else:
-            p_mid = torch.where(owner0 >= 0, torch.clamp(
-                st.prices - st.price_unc, min=0.0), 0.0)
-            outs = full_solve(st, it_eff, wed, wfd, budget, kps_c, p_mid)
+            with trace.span("solve"):
+                sres = stream_step(st, it_eff, wed, wfd, budget, kps_c)
+            with trace.span("estimate"):
+                return _tail(st, sres.match, sres.energy, sres.rounds,
+                             sres.prices, sres.acol, sres.cd_sel,
+                             sres.penalty, sres.ed_max, sres.punc,
+                             sres.fd_sel, sres)
+        with trace.span("solve"):
+            if use_warm_kernel and it_eff > 1.0 and st.it > 1:
+                outs = warm_solve(st, it_eff, wed, wfd, budget, kps_c,
+                                  owner0, real0)
+            else:
+                p_mid = torch.where(owner0 >= 0, torch.clamp(
+                    st.prices - st.price_unc, min=0.0), 0.0)
+                outs = full_solve(st, it_eff, wed, wfd, budget, kps_c, p_mid)
         (match, energy, rounds, prices, acol_new, cd_sel, penalty,
          ed_max, punc_new) = outs
-        return _tail(st, match, energy, rounds, prices, acol_new, cd_sel,
-                     penalty, ed_max, punc_new,
-                     fd_b[rows, match.tgt_idx].to(torch.float32))
+        with trace.span("estimate"):
+            return _tail(st, match, energy, rounds, prices, acol_new, cd_sel,
+                         penalty, ed_max, punc_new,
+                         fd_b[rows, match.tgt_idx].to(torch.float32))
 
     def _tail(st, match, energy, rounds, prices, acol_new, cd_sel, penalty,
               ed_max, punc_new, fsel, sres=None):
@@ -651,7 +659,8 @@ def make_body(kp_t, mask_s, mask_t, fd, bbx_magnitude: float,
             m.open_rows[i] = sres.open_rows
             m.compact_sweeps[i] = sres.compact_sweeps
             m.fast[i] = int(sres.fast)
-        flags = torch.stack([cor < config.min_cor, small]).cpu()
+        with trace.wait():
+            flags = torch.stack([cor < config.min_cor, small]).cpu()
         converged = st.converged or bool(flags[0]) or bool(flags[1])
         matches = torch.where(w > 0, tgt_idx, -1)
         max_disp = comm.pmax(torch.where(
@@ -744,29 +753,32 @@ def make_batched_body(kp_t, mask_s, mask_t, fd, bbx_magnitude,
             dim=(-2, -1)))
         del ed
         penalty = cost.penalty
-        if km:
-            dpen = torch.abs(penalty - st.pen_prev)
-            ares = auction_match(
-                cost.cd, penalty, mask_s, mask_t, eps_final=config.km_eps,
-                max_rounds=budget, rel_eps=config.auction_rel_eps,
-                p0=st.prices, price_uncertainty=st.price_unc + dpen[:, None],
-                quantize_bf16=config.auction_bf16,
-                use_round_kernel=config.auction_round_kernel,
-                n_phases=config.auction_phases, acol0=st.acol,
-                keep_slack_extra=dpen, active=active, comm=comm,
-                total_rows=total_rows)
-            match, cd_sel, energy = ares.match, ares.cd_sel, ares.energy
-            rounds, prices, acol, punc = (ares.rounds.to(dev), ares.prices,
-                                          ares.acol, ares.punc)
-        else:
-            match = (nn_match(cost.cd, penalty, mask_s, mask_t, comm)
-                     if config.correspondence == CorrespondenceType.NN
-                     else nnr_match(cost.cd, mask_s, mask_t, comm))
-            cd_sel = cost.cd.gather(-1, match.tgt_idx[..., None])[..., 0]
-            energy = torch.zeros((P,), dtype=torch.float32, device=dev)
-            rounds = torch.zeros((P,), dtype=torch.int64, device=dev)
-            prices, acol = st.prices, st.acol
-            punc = torch.zeros_like(st.price_unc)
+        with trace.span("solve"):
+            if km:
+                dpen = torch.abs(penalty - st.pen_prev)
+                ares = auction_match(
+                    cost.cd, penalty, mask_s, mask_t, eps_final=config.km_eps,
+                    max_rounds=budget, rel_eps=config.auction_rel_eps,
+                    p0=st.prices,
+                    price_uncertainty=st.price_unc + dpen[:, None],
+                    quantize_bf16=config.auction_bf16,
+                    use_round_kernel=config.auction_round_kernel,
+                    n_phases=config.auction_phases, acol0=st.acol,
+                    keep_slack_extra=dpen, active=active, comm=comm,
+                    total_rows=total_rows)
+                match, cd_sel, energy = ares.match, ares.cd_sel, ares.energy
+                rounds, prices, acol, punc = (ares.rounds.to(dev),
+                                              ares.prices, ares.acol,
+                                              ares.punc)
+            else:
+                match = (nn_match(cost.cd, penalty, mask_s, mask_t, comm)
+                         if config.correspondence == CorrespondenceType.NN
+                         else nnr_match(cost.cd, mask_s, mask_t, comm))
+                cd_sel = cost.cd.gather(-1, match.tgt_idx[..., None])[..., 0]
+                energy = torch.zeros((P,), dtype=torch.float32, device=dev)
+                rounds = torch.zeros((P,), dtype=torch.int64, device=dev)
+                prices, acol = st.prices, st.acol
+                punc = torch.zeros_like(st.price_unc)
         del cost
         w, tgt_idx = match.w, match.tgt_idx
         cor = comm.psum(w.sum(dim=-1))
@@ -816,7 +828,8 @@ def make_batched_body(kp_t, mask_s, mask_t, fd, bbx_magnitude,
                          (m.cor, cor.to(torch.int64)), (m.iou, iou),
                          (m.penalty, penalty), (m.rounds, rounds)):
             buf[pa, ia] = val[pa].to(buf.dtype)
-        flags = torch.stack([cor < config.min_cor, small]).cpu().numpy()
+        with trace.wait():
+            flags = torch.stack([cor < config.min_cor, small]).cpu().numpy()
         converged = st.converged | (active & (flags[0] | flags[1]))
         max_disp = comm.pmax(torch.where(
             mask_s, torch.linalg.norm(kps_new - st.kps, dim=-1),
@@ -896,7 +909,7 @@ def final_resolve(state: _State, kp_t, mask_s, mask_t, fd,
     matches = torch.where(keep1, tgt_idx, -1)
     n = torch.clamp(w1.sum(), min=1.0)
     se = (w1 * ((state.kps - kp_t[tgt_idx]) ** 2).sum(dim=-1)).sum()
-    return matches, int(w1.sum()), torch.sqrt(se / n)
+    return matches, trace.read(int, w1.sum()), torch.sqrt(se / n)
 
 
 def _on_device(dev, kp_s, mask_s, kp_t, mask_t):
@@ -985,7 +998,8 @@ def ghicp_register(kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude: float,
     state = _loop(kp_s, mask_s, kp_t, mask_t, fd, bbx_magnitude, config,
                   init_transform, it_shift, device, iteration_callback,
                   stream)[0]
-    return _result(state, float(state.rmse_after), state.matches, config)
+    return _result(state, trace.read(float, state.rmse_after),
+                   state.matches, config)
 
 
 def ghicp_register_chunked(kp_s, mask_s, kp_t, mask_t, fd,
@@ -1011,12 +1025,13 @@ def ghicp_register_chunked(kp_s, mask_s, kp_t, mask_t, fd,
         init_transform, it_shift, device, iteration_callback, stream,
         chunk=chunk, overhead_out=overhead_out)
     matches = state.matches
-    final_rmse = float(state.rmse_after)
+    final_rmse = trace.read(float, state.rmse_after)
     if (config.final_resolve_rounds > 0
             and config.correspondence == CorrespondenceType.KM):
-        matches, _, rmse = final_resolve(state, kp_t, mask_s, mask_t, fd, bbx,
-                                         config, stream)
-        final_rmse = float(rmse)
+        with trace.span("final"):
+            matches, _, rmse = final_resolve(state, kp_t, mask_s, mask_t, fd,
+                                             bbx, config, stream)
+        final_rmse = trace.read(float, rmse)
     return _result(state, final_rmse, matches, config)
 
 

@@ -22,7 +22,6 @@ variant axis) and 4-DoF (yaw-only) estimation.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 import time
@@ -31,6 +30,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ghicp_tpu_torch.core import trace
 from ghicp_tpu_torch.core.config import FeatureType, GHICPConfig
 from ghicp_tpu_torch.core.device import resolve_device
 from ghicp_tpu_torch.core.types import (PointCloud, bucket_size,
@@ -169,16 +169,19 @@ def consensus_score(T, kp_sub, mask_sub, kp_t, mask_t, tau: float) -> int:
     return int(((d2 < tau * tau) & mask_sub).sum())
 
 
-@contextlib.contextmanager
-def _stage(name: str, timings: Dict[str, float], dev: torch.device):
-    """Time one pipeline stage (device work included) under a profiler
-    label ``pipeline.<name>``."""
-    t0 = time.perf_counter()
-    with torch.profiler.record_function(f"pipeline.{name}"):
-        yield
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-    timings[name] = time.perf_counter() - t0
+def _refine(ds, dt, kp_s, kp_s_mask, kp_t, kp_t_mask, fs_pca, ft_pca, rs, rt,
+            config: GHICPConfig):
+    """Both clouds' keypoints refined below the voxel size: (kp_s, kp_t)."""
+    rr = config.refine_radius or 3.0 * config.voxel_size
+    if config.refine_method == "corner":
+        return (refine_positions_corner(kp_s, kp_s_mask, ds, fs_pca,
+                                        radius=rr),
+                refine_positions_corner(kp_t, kp_t_mask, dt, ft_pca,
+                                        radius=rr))
+    cc_s, curv_s = compact_candidates(ds, fs_pca, rs.candidates)
+    cc_t, curv_t = compact_candidates(dt, ft_pca, rt.candidates)
+    return (refine_positions(kp_s, kp_s_mask, cc_s, curv_s, radius=rr),
+            refine_positions(kp_t, kp_t_mask, cc_t, curv_t, radius=rr))
 
 
 def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
@@ -194,11 +197,27 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
 
     ``profile_dir`` runs the call under ``torch.profiler`` (the host, and
     the card's kernels when it runs there) and writes a Chrome trace
-    (``*.pt.trace.json``) into that directory; the stages show as
-    ``pipeline.<stage>`` ranges.  ``iteration_callback(it, kps, matches)``
-    is called every ``config.engine_chunk`` engine iterations and at the
-    loop's end; ``overhead_out`` (a dict) receives the engine's
-    ``dispatch_overhead`` (:func:`ghicp_register_chunked`)."""
+    (``*.pt.trace.json``) into that directory; the stages and their
+    parts (the keys of ``timings`` below of at most two names) show as
+    ``pipeline.<path>`` ranges.
+    ``iteration_callback(it, kps, matches)`` is called every
+    ``config.engine_chunk`` engine iterations and at the loop's end;
+    ``overhead_out`` (a dict) receives the engine's ``dispatch_overhead``
+    (:func:`ghicp_register_chunked`).
+
+    ``timings`` of the output: host seconds by dotted path
+    (:mod:`ghicp_tpu_torch.core.trace`).  The stages ``downsample``,
+    ``keypoints``, ``features``, ``coarse_init`` (absent without RANSAC)
+    and ``register`` each include their device work (synchronised at the
+    stage's end).  Under them: ``<path>.wait``, the host waiting on the
+    card (its reads of device values and the stage's closing
+    synchronisation); ``keypoints.pca`` / ``.detect`` / ``.slots`` /
+    ``.refine``; ``features.describe`` / ``.fd``; ``register.solve`` (every
+    engine iteration's matching solve; on the streaming lane with
+    ``.sweep``, ``.compact`` and ``.resolve``), ``register.estimate`` (the
+    matched statistics, the estimator and the convergence test) and
+    ``register.final`` (the one-to-one final matching).  A path sums every
+    visit; a path's children never sum to more than it."""
     dev = resolve_device(device)
     if profile_dir is not None:
         from torch.profiler import ProfilerActivity, profile
@@ -215,99 +234,112 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
             f"register_pair.{os.getpid()}.{time.time_ns()}.pt.trace.json"))
         return out
     timings: Dict[str, float] = {}
-    with _stage("downsample", timings, dev):
+    with trace.record(timings):
+        return _register(source_pts, target_pts, config, keypoint_capacity,
+                         initial_transform, iteration_callback, overhead_out,
+                         dev, timings)
+
+
+def _register(source_pts, target_pts, config: GHICPConfig, keypoint_capacity,
+              initial_transform, iteration_callback, overhead_out,
+              dev: torch.device, timings: Dict[str, float]
+              ) -> RegistrationOutput:
+    """:func:`register_pair`'s stages, under the active trace record
+    ``timings``."""
+    with trace.stage("downsample", dev):
         cs = PointCloud.from_points(source_pts, device=dev)
         ct = PointCloud.from_points(target_pts, device=dev)
         vs = voxel_downsample(cs, config.voxel_size)
         vt = voxel_downsample(ct, config.voxel_size)
-        n_vs, n_vt = (int(x) for x in torch.stack([vs.mask.sum(),
-                                                   vt.mask.sum()]).cpu())
+        with trace.wait():
+            counts = torch.stack([vs.mask.sum(), vt.mask.sum()]).cpu()
+        n_vs, n_vt = (int(x) for x in counts)
         # one shared bucket for both clouds
         cap_d = max(bucket_size(n_vs), bucket_size(n_vt))
         ds = compact_device(vs, capacity=cap_d)
         dt = compact_device(vt, capacity=cap_d)
-        bbx = float(cloud_bounds(ds).magnitude)
+        bbx = trace.read(float, cloud_bounds(ds).magnitude)
 
-    with _stage("keypoints", timings, dev):
+    with trace.stage("keypoints", dev):
         fs_pca = ft_pca = None
         if config.adaptive_keypoints:
             # (no refinement below: the JAX package's adaptive path keeps
             # its PCA to itself)
-            rs = adaptive_detect(ds, config)
-            rt = adaptive_detect(dt, config)
+            with trace.span("detect"):
+                rs = adaptive_detect(ds, config)
+                rt = adaptive_detect(dt, config)
         else:
-            fs_pca, ft_pca = pca_features_pair(
-                ds, dt, radius=config.neighborhood_radius,
-                cell_cap=config.pca_cell_cap,
-                max_cells=config.pca_max_cells)
-            rs = detect_keypoints(ds, config, fs_pca)
-            rt = detect_keypoints(dt, config, ft_pca)
-        mask_s_np, mask_t_np = rs.mask.cpu().numpy(), rt.mask.cpu().numpy()
+            with trace.span("pca"):
+                fs_pca, ft_pca = pca_features_pair(
+                    ds, dt, radius=config.neighborhood_radius,
+                    cell_cap=config.pca_cell_cap,
+                    max_cells=config.pca_max_cells)
+            with trace.span("detect"):
+                rs = detect_keypoints(ds, config, fs_pca)
+                rt = detect_keypoints(dt, config, ft_pca)
+        with trace.wait():
+            mask_s_np, mask_t_np = rs.mask.cpu().numpy(), rt.mask.cpu().numpy()
         nks, nkt = int(mask_s_np.sum()), int(mask_t_np.sum())
         cap = keypoint_capacity or config.keypoint_capacity or bucket_size(
             max(nks, nkt, 1))
         use_stream = (config.streaming_cost == "on"
                       or (config.streaming_cost == "auto"
                           and cap > config.streaming_threshold))
-        kp_s_idx, kp_s_mask, _ = _keypoint_arrays(mask_s_np, cap, dev)
-        kp_t_idx, kp_t_mask, _ = _keypoint_arrays(mask_t_np, cap, dev)
-        so = _morton_order_rows(ds.xyz[kp_s_idx], kp_s_mask)
-        kp_s_idx, kp_s_mask = kp_s_idx[so], kp_s_mask[so]
-        kp_s = ds.xyz[kp_s_idx]
-        kp_t = dt.xyz[kp_t_idx]
+        # the keypoint slots, the source rows in Morton order
+        with trace.span("slots"):
+            kp_s_idx, kp_s_mask, _ = _keypoint_arrays(mask_s_np, cap, dev)
+            kp_t_idx, kp_t_mask, _ = _keypoint_arrays(mask_t_np, cap, dev)
+            so = _morton_order_rows(ds.xyz[kp_s_idx], kp_s_mask)
+            kp_s_idx, kp_s_mask = kp_s_idx[so], kp_s_mask[so]
+            kp_s = ds.xyz[kp_s_idx]
+            kp_t = dt.xyz[kp_t_idx]
         if config.refine_keypoints and fs_pca is not None:
-            rr = config.refine_radius or 3.0 * config.voxel_size
-            if config.refine_method == "corner":
-                kp_s = refine_positions_corner(kp_s, kp_s_mask, ds, fs_pca,
-                                               radius=rr)
-                kp_t = refine_positions_corner(kp_t, kp_t_mask, dt, ft_pca,
-                                               radius=rr)
-            else:
-                cc_s, curv_s = compact_candidates(ds, fs_pca, rs.candidates)
-                cc_t, curv_t = compact_candidates(dt, ft_pca, rt.candidates)
-                kp_s = refine_positions(kp_s, kp_s_mask, cc_s, curv_s,
-                                        radius=rr)
-                kp_t = refine_positions(kp_t, kp_t_mask, cc_t, curv_t,
-                                        radius=rr)
+            with trace.span("refine"):
+                kp_s, kp_t = _refine(ds, dt, kp_s, kp_s_mask, kp_t, kp_t_mask,
+                                     fs_pca, ft_pca, rs, rt, config)
 
     mult = config.feature in MULT_FEATURES
     frames_s = frames_t = fd = stream = None
-    with _stage("features", timings, dev):
-        if config.feature == FeatureType.BSC:
-            fs = extract_bsc(ds, kp_s, kp_s_mask, config,
-                             num_variants=config.bsc_num_variants)
-            if config.bsc_offsets > 1:
-                fs = offset_encodings(ds, kp_s, kp_s_mask, fs, config)
-            ft = extract_bsc(dt, kp_t, kp_t_mask, config, num_variants=1)
-            frames_s, frames_t = fs.frames, ft.frames
-            if use_stream:
-                stream = make_stream_features(fs.packed, ft.packed,
-                                              fs.n_bits)
-            else:
-                fd = min_hamming_fd(fs.packed, ft.packed, fs.n_bits)
-        elif config.feature == FeatureType.NONE:
-            if use_stream:
-                stream = NoFeatures(n_rows=cap)
-            else:
-                fd = torch.zeros((cap, cap), dtype=torch.float32, device=dev)
-        elif config.feature == FeatureType.FPFH:
-            radius = config.fpfh_radius or 3.0 * config.voxel_size
-            k = max(config.fpfh_k, 24)
-            desc_s = fpfh_features(ds, radius, k)[0][kp_s_idx]
-            desc_t = fpfh_features(dt, radius, k)[0][kp_t_idx]
-            if use_stream:
-                stream = make_desc_features(desc_s, desc_t, "rows")
-            else:
+    with trace.stage("features", dev):
+        with trace.span("describe"):
+            if config.feature == FeatureType.BSC:
+                fs = extract_bsc(ds, kp_s, kp_s_mask, config,
+                                 num_variants=config.bsc_num_variants)
+                if config.bsc_offsets > 1:
+                    fs = offset_encodings(ds, kp_s, kp_s_mask, fs, config)
+                ft = extract_bsc(dt, kp_t, kp_t_mask, config, num_variants=1)
+                frames_s, frames_t = fs.frames, ft.frames
+            elif config.feature == FeatureType.FPFH:
+                radius = config.fpfh_radius or 3.0 * config.voxel_size
+                k = max(config.fpfh_k, 24)
+                desc_s = fpfh_features(ds, radius, k)[0][kp_s_idx]
+                desc_t = fpfh_features(dt, radius, k)[0][kp_t_idx]
+            elif config.feature == FeatureType.ROPS:
+                kw = dict(radius=config.rops_radius or config.non_max_radius,
+                          neighbor_k=config.rops_neighbor_k,
+                          n_rotations=config.rops_rotations,
+                          n_bins=config.rops_bins)
+                desc_s = rops_features(ds, kp_s, kp_s_mask, **kw).desc
+                desc_t = rops_features(dt, kp_t, kp_t_mask, **kw).desc
+        with trace.span("fd"):
+            if config.feature == FeatureType.BSC:
+                if use_stream:
+                    stream = make_stream_features(fs.packed, ft.packed,
+                                                  fs.n_bits)
+                else:
+                    fd = min_hamming_fd(fs.packed, ft.packed, fs.n_bits)
+            elif config.feature == FeatureType.NONE:
+                if use_stream:
+                    stream = NoFeatures(n_rows=cap)
+                else:
+                    fd = torch.zeros((cap, cap), dtype=torch.float32,
+                                     device=dev)
+            elif use_stream:
+                stream = make_desc_features(
+                    desc_s, desc_t,
+                    "rows" if config.feature == FeatureType.FPFH else "dims")
+            elif config.feature == FeatureType.FPFH:
                 fd = fpfh_similarity_matrix(desc_s, desc_t)
-        else:
-            kw = dict(radius=config.rops_radius or config.non_max_radius,
-                      neighbor_k=config.rops_neighbor_k,
-                      n_rotations=config.rops_rotations,
-                      n_bins=config.rops_bins)
-            desc_s = rops_features(ds, kp_s, kp_s_mask, **kw).desc
-            desc_t = rops_features(dt, kp_t, kp_t_mask, **kw).desc
-            if use_stream:
-                stream = make_desc_features(desc_s, desc_t, "dims")
             else:
                 fd = rops_similarity_matrix(desc_s, desc_t)
 
@@ -316,7 +348,7 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
     it_shift = 0.0
     if (T0 is None and config.coarse_init == "ransac"
             and config.feature != FeatureType.NONE):
-        with _stage("coarse_init", timings, dev):
+        with trace.stage("coarse_init", dev):
             tau = config.ransac_tau or 3.0 * config.voxel_size
             if use_stream:
                 # candidates from one factor scan, over source rows strided
@@ -346,7 +378,7 @@ def register_pair(source_pts: np.ndarray, target_pts: np.ndarray,
 
     identity = (T0 is None and config.coarse_init == "none"
                 and config.identity_hypotheses > 1)
-    with _stage("register", timings, dev):
+    with trace.stage("register", dev):
         if identity:
             # schedule-shifted identity starts explore distinct basins of
             # the FD-dominated early phase; the geometric consensus (rows
