@@ -19,7 +19,12 @@ rounds may continue past the base budget up to ``compact_extra_sweeps``
 at the frozen epsilon.  Semantics follow the JAX package's
 ``matching/stream_auction.py``; its control flow (``lax.cond`` /
 ``while_loop``) is a host loop here, with one read of the open-row count
-a round.
+a round until the open rows fit the block.  From there on one device
+(no ``comm``, no caller's sweeps) runs the rest of the rounds as one
+guarded round with no host read (:func:`stream_solve`'s
+``guarded_round``), replayed from a CUDA graph on the card and run
+eagerly on the CPU, and reads the open count every
+:data:`ROUNDS_PER_READ` rounds.
 
 Under a distributed ``comm`` the rows are this rank's shard of
 ``total_rows``: owners are global row ids (pmax to rebuild, pmin to
@@ -32,6 +37,7 @@ open count) and matched-pair gathers (``select_fn``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -40,11 +46,24 @@ from ghicp_tpu_torch.core import trace
 from ghicp_tpu_torch.core.comm import LOCAL, Comm
 from ghicp_tpu_torch.matching.auction import SINK, _local_rows
 from ghicp_tpu_torch.matching.matchers import MatchResult
+from ghicp_tpu_torch.ops import LAUNCHES, count_launch
 from ghicp_tpu_torch.ops.stream_kernel import (RT, SweepTarget,
                                                stream_selected, stream_sweep,
                                                subset_rows)
 
 NEG = -3.0e38
+
+# Guarded rounds between two reads of the open count (and of the round
+# counter): each read waits for the card, and each round run after the
+# last one with open rows is idle.  On an H100, 2 to 48 rounds a read gave
+# the same register stage within the runs' spread (PERF.md, section 6).
+ROUNDS_PER_READ = 8
+
+# A device's CUDA graph memory pool and capture stream, kept for the
+# process, and its newest graph.  A capture may share a pool only while a
+# graph still holds it; a solve's graph is replayed only within its
+# solve, so the next capture reuses the last one's memory.
+_CAPTURE: dict = {}
 
 
 class StreamSolveResult(NamedTuple):
@@ -67,6 +86,21 @@ class StreamSolveResult(NamedTuple):
     open_rows: int           # rows open when bidding started
     compact_sweeps: int      # sweeps over a compacted block of open rows
     fast: bool               # the carry replaced sweep 0 (fast path)
+
+
+class _RoundState(NamedTuple):
+    """The guarded round's state, updated in place: the bidding state, the
+    observations of each row's best value, the device round counter and
+    the open-row count after the last round."""
+
+    owner: torch.Tensor
+    acol: torch.Tensor
+    p: torch.Tensor
+    v1_obs: torch.Tensor
+    j1_obs: torch.Tensor
+    obs: torch.Tensor
+    r: torch.Tensor          # () int64: active rounds of the solve
+    n_open: torch.Tensor     # () int64
 
 
 class StreamCarry(NamedTuple):
@@ -94,15 +128,18 @@ def carry_init(n_rows: int, device=None) -> StreamCarry:
 
 
 def _resolve_round(v1, j1, v2, eps_r, sink, owner, acol, p,
-                   row_offset: int = 0, comm: Comm = LOCAL):
+                   row_offset: int = 0, comm: Comm = LOCAL,
+                   unassigned: Optional[torch.Tensor] = None):
     """One Jacobi bidding round from the rows' top-2: the highest bid wins
     a column (over every rank), and among equal bids the highest global
     row id; owners are global row ids, this rank's rows start at
-    ``row_offset``."""
+    ``row_offset``.  ``unassigned``: the rows that may bid or sink (the
+    rows with ``acol`` -1, or none in an inactive guarded round)."""
     R, C = v1.shape[0], p.shape[0]
     dev = v1.device
     rows = row_offset + torch.arange(R, device=dev)
-    unassigned = acol == -1
+    if unassigned is None:
+        unassigned = acol == -1
     to_sink = unassigned & (v1 <= sink)
     acol = torch.where(to_sink, SINK, acol)
     bidding = unassigned & ~to_sink
@@ -116,7 +153,10 @@ def _resolve_round(v1, j1, v2, eps_r, sink, owner, acol, p,
         0, j1, torch.where(is_best, rows, -1), "amax"))
     has = winner >= 0
     ext = torch.cat([acol, acol.new_zeros(1)])
-    ext[_local_rows(owner, has & (owner >= 0), row_offset, R)] = -1
+    # index_fill_ passes -1 to the kernel; ``ext[...] = -1`` would copy it
+    # from the host, which a CUDA graph capture refuses
+    ext.index_fill_(0, _local_rows(owner, has & (owner >= 0), row_offset, R),
+                    -1)
     ext[_local_rows(winner, has, row_offset, R)] = torch.arange(C,
                                                                 device=dev)
     return (torch.where(has, winner, owner), ext[:R],
@@ -132,6 +172,40 @@ def sweep_moments(sw):
     mean = sw.cd_sum / cnt
     return mean, torch.sqrt(torch.clamp(sw.cd_sumsq / cnt - mean * mean,
                                         min=0.0))
+
+
+def _graph_device(dev) -> bool:
+    """Whether the guarded rounds replay from a CUDA graph on ``dev``
+    (else they run eagerly, read for read as the graph would)."""
+    return dev.type == "cuda"
+
+
+def _capture(step: Callable, dev):
+    """``step()`` captured into a CUDA graph (not run) on the device's
+    capture stream, into its pool (:data:`_CAPTURE`); returns the graph
+    and the launch counts the capture added, taken back out of
+    ``LAUNCHES``: the card runs them once a replay."""
+    slot = _CAPTURE.get(dev)
+    if slot is None:
+        slot = _CAPTURE[dev] = [torch.cuda.graph_pool_handle(),
+                                torch.cuda.Stream(dev), None]
+    graph = torch.cuda.CUDAGraph()
+    before = dict(LAUNCHES)
+    with torch.cuda.stream(slot[1]):
+        graph.capture_begin(pool=slot[0], capture_error_mode="thread_local")
+        try:
+            step()
+        except BaseException:
+            with contextlib.suppress(RuntimeError):
+                graph.capture_end()
+            raise
+        graph.capture_end()
+    slot[2] = graph
+    launched = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                if v != before.get(k, 0)}
+    for k, v in launched.items():
+        LAUNCHES[k] -= v
+    return graph, launched
 
 
 def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
@@ -189,16 +263,6 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
     if select_fn is None:
         def select_fn(jc):
             return stream_selected(kp_s, kp_t, feats, jc, wed, wfd, scale)
-
-    def sub_sweep(idx, sub_mask, p, ac_sub):
-        nonlocal n_compact
-        n_compact += 1
-        with trace.span("sweep"):
-            if sweep_sub_fn is not None:
-                return sweep_sub_fn(idx, sub_mask, p, ac_sub)
-            return stream_sweep(kp_s[idx], kp_t, subset_rows(feats, idx),
-                                sub_mask, mask_t, p, ac_sub, wed, wfd, scale,
-                                with_stats=False, target=target)
 
     # --- sweep 0: statistics + warm-start hints at mid-deflated prices ---
     real0 = (acol0 >= 0) & (acol0 < C)
@@ -269,26 +333,23 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
     budget_ext = max(budget, int(compact_extra_sweeps)) if extend else budget
     esc_after = max(budget // 4, 1)
 
-    def esc_eps(r: int):
-        """Epsilon doubles each round past a quarter of the base budget
-        and freezes beyond it."""
-        return eps * torch.exp2(f(float(max(min(r, budget) - esc_after, 0))))
+    def esc_eps(r):
+        """Epsilon of round ``r`` (a host int, or an int64 device scalar in
+        the guarded round: the same float32 operations): it doubles each
+        round past a quarter of the base budget and freezes beyond it."""
+        if isinstance(r, int):
+            k = f(float(max(min(r, budget) - esc_after, 0)))
+        else:
+            k = torch.clamp(torch.clamp(r, max=budget) - esc_after,
+                            min=0).to(torch.float32)
+        return eps * torch.exp2(k)
 
     neg_s = torch.full((S,), NEG, dtype=torch.float32, device=dev)
 
-    def open_top2(rows_open, n_open: int, p, acol):
-        """Top-2 of the open rows: compacted when they fit in ``cap``, else
-        a full sweep; full-[S] (v1, j1, v2) with NEG at untouched rows,
-        plus the fresh v1 observations and the rows they cover.
-        ``n_open``: this rank's open rows (the ranks' largest count where
-        the sweep carries collectives)."""
-        if uniform_compact:
-            n_open = trace.read(int, comm.pmax(torch.tensor(n_open,
-                                                            device=dev)))
-        if not can_compact or n_open > cap:
-            with trace.span("sweep"):
-                sw = sweep_fn(p, acol)
-            return sw.v1, sw.j1, sw.v2, sw.v1, mask_s
+    def compact_top2(rows_open, p, acol):
+        """Top-2 of the open rows, which fit in ``cap``, from one sweep of
+        a compacted block: full-[S] (v1, j1, v2) with NEG at rows outside
+        it, and the rows the sweep observed."""
         with trace.span("compact"):
             rank = torch.cumsum(rows_open.to(torch.int64), 0) - 1
             pos = torch.where(rows_open & (rank < cap), rank, cap)
@@ -299,7 +360,13 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
             filled[pos] = rows_open
             sub_mask = filled[:cap] & mask_s[idx]
             ac_sub = acol[idx]
-        sw = sub_sweep(idx, sub_mask, p, ac_sub)
+        with trace.span("sweep"):
+            if sweep_sub_fn is not None:
+                sw = sweep_sub_fn(idx, sub_mask, p, ac_sub)
+            else:
+                sw = stream_sweep(kp_s[idx], kp_t, subset_rows(feats, idx),
+                                  sub_mask, mask_t, p, ac_sub, wed, wfd,
+                                  scale, with_stats=False, target=target)
         with trace.span("compact"):
             idx_sc = torch.where(sub_mask, idx, S)
             v1 = torch.cat([neg_s, neg_s[:1]])
@@ -310,7 +377,79 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
             v2[idx_sc] = sw.v2
             obs = torch.zeros((S + 1,), dtype=torch.bool, device=dev)
             obs[idx_sc] = sub_mask
-        return v1[:S], j1[:S], v2[:S], v1[:S], obs[:S]
+        return v1[:S], j1[:S], v2[:S], obs[:S]
+
+    def open_top2(rows_open, n_open: int, p, acol):
+        """Top-2 of the open rows: compacted when they fit in ``cap``, else
+        a full sweep; full-[S] (v1, j1, v2) with NEG at untouched rows,
+        plus the rows whose v1 it observed.  ``n_open``: this rank's open
+        rows (the ranks' largest count where the sweep carries
+        collectives)."""
+        nonlocal n_compact
+        if uniform_compact:
+            n_open = trace.read(int, comm.pmax(torch.tensor(n_open,
+                                                            device=dev)))
+        if not can_compact or n_open > cap:
+            with trace.span("sweep"):
+                sw = sweep_fn(p, acol)
+            return sw.v1, sw.j1, sw.v2, mask_s
+        n_compact += 1
+        return compact_top2(rows_open, p, acol)
+
+    # the open count never rises (a column's winner was open, and it
+    # displaces at most one owner), so once the open rows fit the block
+    # one device runs the rest of the rounds guarded, up to budget_ext
+    guarded = can_compact and sweep_sub_fn is None and not comm.distributed
+
+    def guarded_round(st: _RoundState):
+        """One compacted bidding round with no host read, in place on
+        ``st``: active while the round counter is under ``budget_ext`` and
+        rows are open; an inactive round bids nothing and observes nothing,
+        so it leaves every buffer as it was."""
+        live = (st.r < budget_ext) & (st.n_open > 0)
+        rows_open = (st.acol == -1) & live
+        v1, j1, v2, touched = compact_top2(rows_open, st.p, st.acol)
+        st.v1_obs.copy_(torch.where(touched, v1, st.v1_obs))
+        st.j1_obs.copy_(torch.where(touched, j1, st.j1_obs))
+        st.obs.copy_(st.obs | touched)
+        with trace.span("resolve"):
+            owner_n, acol_n, p_n = _resolve_round(
+                v1, j1, v2, esc_eps(st.r + 1), sink, st.owner, st.acol, st.p,
+                row_offset, comm, unassigned=rows_open)
+        st.owner.copy_(owner_n)
+        st.acol.copy_(acol_n)
+        st.p.copy_(p_n)
+        st.r.add_(live.to(torch.int64))
+        st.n_open.copy_((st.acol == -1).sum())
+
+    def guarded_rounds(st: _RoundState, n_open: int, r: int) -> int:
+        """The rounds from ``r`` on, ``n_open`` rows open: the guarded
+        round replayed from a CUDA graph captured once (on the card) or
+        run eagerly, the open count and the round counter read every
+        :data:`ROUNDS_PER_READ` rounds and where ``budget_ext`` falls; returns
+        the rounds run in all."""
+        step = lambda: guarded_round(st)
+        run, kind, launched = step, "stream_round_eager", {}
+        replaying = contextlib.nullcontext
+        if _graph_device(dev):
+            with trace.span("capture"):
+                graph, launched = _capture(step, dev)
+            count_launch("stream_graph_capture")
+            run, kind = graph.replay, "stream_round_graph"
+            replaying = lambda: trace.span("replay")
+        while n_open > 0 and r < budget_ext:
+            k = min(ROUNDS_PER_READ, budget_ext - r)
+            with replaying():
+                for _ in range(k):
+                    run()
+                n_open, r_now = trace.read(
+                    lambda t: t.tolist(), torch.stack([st.n_open, st.r]))
+            for name, n in launched.items():
+                count_launch(name, n * k)
+            count_launch(kind, r_now - r)
+            count_launch("stream_round_idle", k - (r_now - r))
+            r = r_now
+        return r
 
     # cold solves reuse sweep 0's top-2 for the first bidding round
     cold0 = not trace.read(bool, (owner0 >= 0).any())
@@ -331,18 +470,29 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
                                    and r < budget_ext)
         if n_open == 0 or not in_budget:
             break
-        if r == 0 and cold0 and swept0:
-            v1, j1, v2, v1_new, touched = (v1_base, sw0_j1, sw0_v2, v1_base,
-                                           mask_s)
+        first = r == 0 and cold0 and swept0
+        if guarded and not first and n_open <= cap:
+            st = _RoundState(owner.clone(), acol.clone(), p.clone(),
+                             v1_obs.clone(), j1_obs.clone(), obs.clone(),
+                             torch.full((), r, dtype=torch.int64,
+                                        device=dev), n_local.clone())
+            r_end = guarded_rounds(st, n_open, r)
+            n_compact += r_end - r
+            owner, acol, p, v1_obs, j1_obs, obs = st[:6]
+            r = r_end
+            break
+        if first:
+            v1, j1, v2, touched = v1_base, sw0_j1, sw0_v2, mask_s
         else:
-            v1, j1, v2, v1_new, touched = open_top2(
+            v1, j1, v2, touched = open_top2(
                 rows_open, trace.read(int, n_local), p, acol)
-        v1_obs = torch.where(touched, v1_new, v1_obs)
+        v1_obs = torch.where(touched, v1, v1_obs)
         j1_obs = torch.where(touched, j1, j1_obs)
         obs = obs | touched
         with trace.span("resolve"):
             owner, acol, p = _resolve_round(v1, j1, v2, esc_eps(r + 1), sink,
                                             owner, acol, p, row_offset, comm)
+        count_launch("stream_round_eager")
         r += 1
 
     # --- greedy completion at final prices (budget exhaustion) ---
@@ -356,9 +506,9 @@ def stream_solve(kp_s, kp_t, feats, mask_s, mask_t, wed, wfd, scale,
         if stale:
             v1, j1 = v1_obs, j1_obs
         else:
-            v1, j1, _, v1_new, touched = open_top2(
+            v1, j1, _, touched = open_top2(
                 leftover, trace.read(int, n_left_local), p, acol)
-            v1_obs = torch.where(touched, v1_new, v1_obs)
+            v1_obs = torch.where(touched, v1, v1_obs)
             obs = obs | touched
         acol = torch.where(leftover, torch.where(v1 > sink, j1, SINK), acol)
 

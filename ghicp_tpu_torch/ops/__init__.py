@@ -14,7 +14,13 @@ K5 launch also counts under
 sweeps can be told apart, each K4 launch under ``nms_exact@<slots>`` and
 each K1, K2 and K3 launch under ``<name>@<rows>``, its keypoint slots.
 The ring lane's ``ring_sweep`` (n K5 launches over rotated target blocks)
-counts once a sweep under its own name, beside its K5 launches.
+counts once a sweep under its own name, beside its K5 launches.  A K5
+launch replayed from a CUDA graph counts as one launched by its wrapper.
+The streaming solve's bidding rounds count here too, none under a
+``stream_sweep`` name: ``stream_round_eager`` the rounds run eagerly,
+``stream_round_graph`` the active rounds replayed from a graph,
+``stream_round_idle`` the guarded rounds (replayed, or run eagerly on the
+CPU) that did nothing, and ``stream_graph_capture`` the graphs captured.
 """
 from __future__ import annotations
 
@@ -38,11 +44,15 @@ LAUNCHES: dict[str, int] = {"fused_benefit": 0, "auction_phase_gs": 0,
                             "auction_warm_fused_f32": 0,
                             "auction_warm_fused_mult_f32": 0,
                             "auction_rounds": 0, "auction_rounds_f32": 0,
-                            "auction_phase": 0, "auction_phase_f32": 0}
+                            "auction_phase": 0, "auction_phase_f32": 0,
+                            "stream_round_eager": 0,
+                            "stream_round_graph": 0,
+                            "stream_round_idle": 0,
+                            "stream_graph_capture": 0}
 
 
-def count_launch(name: str) -> None:
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+def count_launch(name: str, n: int = 1) -> None:
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + n
 
 
 def reset_launches() -> None:

@@ -553,3 +553,55 @@ def test_surface_phase_rehearsal(capsys):
     assert "bit-equal to extract_bsc's frames True" in lines["14b bsc_frames"]
     assert re.search(r"^phase 14 \(public surface, rehearsal\): [0-9.]+ s; "
                      r"launches ", out, re.M)
+
+
+def test_eager_rounds_rehearsal(monkeypatch, capsys):
+    """Phases 4b / 4c's check on the CPU, a capture that replays the round
+    eagerly in place of the CUDA graph: the streaming engine run again
+    with the guarded rounds run eagerly agrees bit for bit, one capture a
+    solve that reached a compacted round, and the rerun's launches do not
+    count."""
+    import types
+
+    from ghicp_tpu_torch.core.config import (CorrespondenceType,
+                                             FeatureType, GHICPConfig)
+    from ghicp_tpu_torch.features.bsc import pack_bits
+    from ghicp_tpu_torch.io.synthetic import registration_problem
+    from ghicp_tpu_torch.matching import stream_auction as sa
+    from ghicp_tpu_torch.ops import LAUNCHES
+    from ghicp_tpu_torch.ops.stream_kernel import make_stream_features
+    from ghicp_tpu_torch.registration.ghicp import ghicp_register_chunked
+
+    n = 512
+    # uncorrelated bits: contested columns, so most solves bid on over
+    # compacted blocks
+    src, tgt, _, bits_s, bits_t, _ = registration_problem(
+        n, n, seed=21, rot_deg=12.0, flip=0.5)
+    feats = make_stream_features(pack_bits(torch.from_numpy(bits_s)),
+                                 pack_bits(torch.from_numpy(bits_t)))
+    cfg = GHICPConfig(feature=FeatureType.BSC,
+                      correspondence=CorrespondenceType.KM, max_iterations=4,
+                      auction_max_rounds=2, streaming_cost="on",
+                      stream_open_cap=128, converge_translation=0.0,
+                      converge_rotation=0.0)
+    m = np.ones(n, bool)
+
+    def register():
+        res = ghicp_register_chunked(src, m, tgt, m, None, 40.0, cfg,
+                                     device="cpu", stream=feats)
+        return types.SimpleNamespace(transform=res.transform, result=res)
+    monkeypatch.setattr(sa, "_graph_device", lambda dev: True)
+    monkeypatch.setattr(sa, "_capture", lambda step, dev: (
+        types.SimpleNamespace(replay=step), {}))
+    r0 = {k: LAUNCHES[k] for k in chip_smoke.GRAPH_ROUNDS}
+    out = register()
+    counts = {k: LAUNCHES[k] - r0[k] for k in chip_smoke.GRAPH_ROUNDS}
+    assert counts["stream_graph_capture"] == 4
+    after = dict(LAUNCHES)
+    said = chip_smoke.eager_rounds(torch, register, out, counts)
+    assert LAUNCHES == after
+    assert "bit-equal to the eager rounds" in said
+    # a capture count that is not one a compacted solve fails the phase
+    counts["stream_graph_capture"] += 1
+    with pytest.raises(SystemExit, match="captures for"):
+        chip_smoke.eager_rounds(torch, register, out, counts)

@@ -1,8 +1,11 @@
 """The port's streaming auction (``stream_solve``) against the JAX package's
 ``stream_solve(use_kernel=False)`` and the Hungarian optimum, on the
 fixtures of tests/test_stream_auction.py."""
+import types
+
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 import test_stream_auction as jt
@@ -213,3 +216,148 @@ def test_extended_compact_rounds_keep_the_base_epsilon():
     base, ext = run(0), run(24)
     assert ext.rounds >= base.rounds
     assert float(ext.eps_used) <= float(base.eps_used) * 1.001
+
+
+# (lane, S, C, problem seed, base budget, compact extra sweeps, penalty
+# k of mean + k std, eps_final, rel_eps, warm start)
+GUARDED_CASES = {
+    # 14 compacted rounds from round 2: the last leaves nothing open
+    # between two reads of every chunk size but 1
+    "nothing_open_mid_chunk": ("bsc", 192, 256, 31, 2, 48, -1.0, 0.01,
+                               1 / 64, False),
+    # 47 compacted rounds from round 1 reach the 48-round limit with rows
+    # open (a longer limit bids on), left to the greedy completion
+    "limit_mid_chunk": ("bsc", 128, 120, 3, 2, 48, 3.0, 0.01, 0.0, False),
+    "extend_off": ("bsc", 192, 256, 5, 16, 0, 0.0, 0.01, 1 / 64, False),
+    # epsilon doubles from round 17 to the base budget of 64, inside the
+    # compacted rounds
+    "epsilon_escalates": ("bsc", 192, 256, 7, 64, 0, 0.0, 0.001, 1 / 256,
+                          False),
+    # a warm start hands over before its first round
+    "warm_start": ("bsc", 192, 256, 13, 2, 48, 0.0, 0.01, 1 / 64, True),
+    "fpfh_lane": ("desc", 192, 256, 9, 2, 48, 0.0, 0.01, 1 / 64, False),
+    "none_lane": ("none", 192, 256, 11, 2, 48, 0.0, 0.01, 1 / 64, False),
+}
+
+
+def _guarded_problem(lane, S, C, seed):
+    from ghicp_tpu_torch.ops.stream_kernel import (NoFeatures,
+                                                   make_desc_features)
+    kp_s, kp_t, jf, _ = jt._problem(S=S, C=C, seed=seed)
+    if lane == "bsc":
+        feats = _feats(jf)
+    elif lane == "none":
+        feats = NoFeatures(n_rows=S)
+    else:
+        rng = np.random.default_rng(seed)
+        feats = make_desc_features(
+            torch.from_numpy(rng.standard_normal((S, 33), np.float32)),
+            torch.from_numpy(rng.standard_normal((C, 33), np.float32)))
+    return _t(kp_s), _t(kp_t), feats
+
+
+def _guarded_solve(case, host_loop: bool, extra=None):
+    """``case``'s solve; ``host_loop`` passes the caller's sweeps (as the
+    ring lane does), which keeps the per-round host loop with its reads
+    of the open count every round."""
+    from ghicp_tpu_torch.ops.stream_kernel import stream_sweep, subset_rows
+    lane, S, C, seed, budget, ext, k, eps, rel, warm = GUARDED_CASES[case]
+    kp_s, kp_t, feats = _guarded_problem(lane, S, C, seed)
+    ms, mt = torch.ones(S, dtype=torch.bool), torch.ones(C, dtype=torch.bool)
+    wed, wfd, scale = 0.6, 0.4, 0.1
+
+    def solve(kp, **warm_kw):
+        kw = {}
+        if host_loop:
+            kw = dict(
+                sweep_fn=lambda p, ac, with_stats=False: stream_sweep(
+                    kp, kp_t, feats, ms, mt, p, ac, wed, wfd, scale,
+                    with_stats=with_stats),
+                sweep_sub_fn=lambda idx, sub, p, ac: stream_sweep(
+                    kp[idx], kp_t, subset_rows(feats, idx), sub, mt, p, ac,
+                    wed, wfd, scale, with_stats=False))
+        return stream_solve(
+            kp, kp_t, feats, ms, mt, wed, wfd, scale,
+            lambda mean, std: mean + k * std, eps_final=eps, rel_eps=rel,
+            max_sweeps=budget, p0=warm_kw.get("p0", torch.zeros(C)),
+            price_uncertainty=warm_kw.get("unc", 3.0e38),
+            acol0=warm_kw.get("acol0", torch.full((S,), -1)),
+            pen_prev=warm_kw.get("pen_prev", 0.0), open_cap=64,
+            compact_extra_sweeps=ext if extra is None else extra, **kw)
+
+    if not warm:
+        return solve(kp_s)
+    first = solve(kp_s)
+    rng = np.random.default_rng(seed + 1)
+    kp_s2 = kp_s + torch.from_numpy(
+        rng.uniform(-2e-3, 2e-3, tuple(kp_s.shape)).astype(np.float32))
+    return solve(kp_s2, p0=first.prices, acol0=first.acol,
+                 unc=0.1 * 2e-3 * np.sqrt(3) + 2 * float(first.eps_used),
+                 pen_prev=float(first.penalty))
+
+
+def _counting_reads(monkeypatch):
+    from ghicp_tpu_torch.core import trace
+    n = [0]
+    read = trace.read
+
+    def counted(conv, x):
+        n[0] += 1
+        return read(conv, x)
+    monkeypatch.setattr(trace, "read", counted)
+    return n
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+@pytest.mark.parametrize("case", sorted(GUARDED_CASES))
+def test_guarded_rounds_equal_the_host_loop(monkeypatch, case, chunk):
+    """Once the open rows fit the block, one device runs the rest of the
+    rounds guarded (eagerly on the CPU, read for read as the CUDA graph),
+    reading the open count every ``chunk`` rounds: the solve is the host
+    loop's, bit for bit, and it reads the card less."""
+    from ghicp_tpu_torch.matching import stream_auction as sa
+    monkeypatch.setattr(sa, "ROUNDS_PER_READ", chunk)
+    reads = _counting_reads(monkeypatch)
+    want = _guarded_solve(case, host_loop=True)
+    n_loop, reads[0] = reads[0], 0
+    got = _guarded_solve(case, host_loop=False)
+    for name in ("acol", "prices", "eps_used", "v1_next", "punc", "energy"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert torch.equal(got.match.tgt_idx, want.match.tgt_idx)
+    assert (got.rounds, got.compact_sweeps, got.open_rows) == (
+        want.rounds, want.compact_sweeps, want.open_rows)
+    assert got.compact_sweeps > 0 and reads[0] < n_loop
+    budget, ext = GUARDED_CASES[case][4:6]
+    if case == "limit_mid_chunk":
+        assert got.rounds == ext
+        assert _guarded_solve(case, False, extra=2 * ext).rounds > ext
+    if case == "epsilon_escalates":
+        assert got.rounds > budget // 4 + 1
+
+
+def test_replayed_rounds_count_their_launches(monkeypatch):
+    """The graph path's bookkeeping, with a capture that replays the round
+    eagerly: each replay counts the launches its capture made, active and
+    idle rounds apart, one capture a solve."""
+    from ghicp_tpu_torch.matching import stream_auction as sa
+    from ghicp_tpu_torch.ops import LAUNCHES, reset_launches
+    captured = []
+
+    def capture(step, dev):
+        captured.append(dev)
+        return (types.SimpleNamespace(replay=step),
+                {"stream_sweep": 1, "stream_sweep@64": 1})
+    monkeypatch.setattr(sa, "_graph_device", lambda dev: True)
+    monkeypatch.setattr(sa, "_capture", capture)
+    want = _guarded_solve("nothing_open_mid_chunk", host_loop=True)
+    reset_launches()
+    got = _guarded_solve("nothing_open_mid_chunk", host_loop=False)
+    assert torch.equal(got.acol, want.acol)
+    assert torch.equal(got.prices, want.prices)
+    n = dict(LAUNCHES)
+    graph, eager, idle = (n["stream_round_graph"], n["stream_round_eager"],
+                          n["stream_round_idle"])
+    assert len(captured) == n["stream_graph_capture"] == 1
+    assert graph == got.compact_sweeps and eager + graph == got.rounds
+    assert idle > 0 and (graph + idle) % sa.ROUNDS_PER_READ == 0
+    assert n["stream_sweep"] == n["stream_sweep@64"] == graph + idle
